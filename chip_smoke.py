@@ -12,16 +12,28 @@ Phases, one output line each (JSON unless noted):
    gathers (random, identity, P+P and P+(-P) pairs, masked lanes, two
    rounds so general projective inputs are covered), the fused square root
    against the loop of Montgomery-multiply launches and the plain version;
-4. one forest MSM of a main-path batch's size (16,640 random scalars and
-   points in groups of 1,024 and 15,616) against the exact host MSM;
-5. the main path: BatchVerifier.verify_stream over streamed batches of
-   1,024 k=14 mac_range proofs (the committed pack tiled, as bench.py
-   does), every batch ok, through the VM fast path, with every kernel's
-   launch count read over exactly that run; then a 64-proof batch with
-   one public input changed by +1, which must fail at that index;
-6. kernel timings on the arguments of each kernel's widest main-path
-   launch (the wrappers keep them), beside the plain version and the
-   bound; the whole device stage of phase 4's batch-sized forest; the
+   at scan widths: the doubling at 2^19 lanes (random points, identities,
+   outputs of an earlier add), the 8-bit-limb Montgomery multiply (Fq and
+   Fr, 16,384 and 532,480 lanes) and the 8-bit-limb point add at 532,480
+   lanes on the point add's cases; across formats, 2P against P + P as
+   affine points and every 8-bit-limb output against the re-limbed
+   16-bit-limb kernel's; the 8-bit-limb outputs' range;
+4. one forest MSM and one scan MSM per limb backend of a main-path batch's
+   size (16,640 random scalars and points in groups of 1,024 and 15,616)
+   against the exact host MSM, the f8 window totals bit-equal to the
+   re-limbed u16 totals;
+5. the main paths, each with every kernel's launch count set to 0 just
+   before and read just after: BatchVerifier.verify_stream over streamed
+   batches of 1,024 k=14 mac_range proofs (the committed pack tiled, as
+   bench.py does), every batch ok, through the VM fast path, with the
+   forest MSM, then with msm="scan" in "u16" (8 batches) and "f8" (4);
+   for the forest and the scan, a 64-proof batch with one public input
+   changed by +1, which must fail at that index; the doubling through its
+   public entry, ops/curve.double (no verifier path doubles on the
+   device, in either package);
+6. kernel timings on the arguments of each kernel's widest launch on its
+   path (the wrappers keep them), beside the plain version and the bound;
+   the whole device stage of phase 4's batch-sized forest and scans; the
    device busy share of a profiled stream on the warm verifier.
 
 The line before the last holds the kernels' record and the one before it
@@ -49,6 +61,10 @@ MONT_MUL_WIDTHS = (16384, 1 << 19)  # decomp width, and a wide one
 POINT_ADD_WIDTH = 524288            # the forest's level-0 frontier
 SQRT_WIDTH = 16384                  # ~15 points x 1,024 proofs, padded
 FOREST_SIZES = (1024, 15616)       # one main-path batch's two MSM groups
+SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
+POINT_DOUBLE_WIDTH = 524288
+MONT_MUL8_WIDTHS = (16384, SCAN_LANES)
+SCAN_BATCHES = {"u16": 8, "f8": 4}
 
 # Bound model. INT32 rate: an H100 SM issues 64 32-bit integer operations
 # (add, multiply-add) per clock (NVIDIA's Hopper architecture white paper);
@@ -76,7 +92,20 @@ SQRT_EXP_BITS = 252
 SQRT_EXP_ONES = 109
 OPS_SQRT = ((3 + SQRT_EXP_ONES + SQRT_EXP_BITS - 1 + 1) * OPS_MONT_MUL
             + OPS_ADD_SUB + 2 * OPS_PACK)
+# doubling (RCB15 alg. 9): 8 products, 14 adds/subtracts, 3 loads and 3
+# stores
+OPS_POINT_DOUBLE = 8 * OPS_MONT_MUL + 14 * OPS_ADD_SUB + 6 * OPS_PACK
 LIMB_BYTES = 16 * 4  # one element, (16,) int32 limbs
+# The 8-bit-limb format: an element is (32,) float32 limbs; turning it into
+# words, or back, is counted as 1 operation per limb (a conversion fused
+# with its place in the word), the arithmetic on the words is the same.
+OPS_PACK8 = 32
+LIMB_BYTES8 = 32 * 4
+FORMAT = {  # kernel -> (bytes per element, packing operations per element)
+    "mont_mul": (LIMB_BYTES, OPS_PACK), "point_add": (LIMB_BYTES, OPS_PACK),
+    "mont_mul8": (LIMB_BYTES8, OPS_PACK8),
+    "point_add8": (LIMB_BYTES8, OPS_PACK8),
+}
 
 
 def out(obj):
@@ -217,10 +246,11 @@ def mont_points(torch, np, ints_to_limbs, fm, curve, pts, dev):
     return curve.from_affine(up(xs), up(ys))
 
 
-def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
-    """The point add at the forest's level-0 width: a frontier of real
-    points P_i, -P_i and identities, gathered by random indices with
-    P+P, P+(-P), identity+identity and identity+P lanes forced."""
+def add_case(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
+    """The point add's inputs at `width` lanes: a frontier of real points
+    P_i, -P_i and identities, gathered by random indices with P+P,
+    P+(-P), identity+identity and identity+P lanes forced, and a mask.
+    Returns (frontier, iL, iR, mask, pool) with the pool's host points."""
     from halo2_verifier_tpu_torch.ops.constants import G1_GEN
 
     base = curve_points(hc, G1_GEN, 2048, 7)
@@ -242,7 +272,13 @@ def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
                                   lanes % 4096)       # + identity / + P
     mask = torch.rand(width, generator=g) < 0.9
     mask[:3 * k] = True
-    iL, iR, mask = iL.to(dev), iR.to(dev), mask.to(dev)
+    return f, iL.to(dev), iR.to(dev), mask.to(dev), pool
+
+
+def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
+    """The point add at the forest's level-0 width."""
+    f, iL, iR, mask, _pool = add_case(torch, np, hc, fm, curve,
+                                      ints_to_limbs, dev, width)
     worst = 0
     p = f
     for _ in range(2):  # round 2 adds general projective points
@@ -252,6 +288,97 @@ def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
         p = got
     return {"phase": "parity_point_add", "tolerance": 0, "lanes": width,
             "max_abs_err": worst}
+
+
+def check_limbs8(torch, name, *ts):
+    """The 8-bit-limb kernels' contract on their outputs: integers in
+    [0, 255]."""
+    for t in ts:
+        if (t.dtype != torch.float32 or float(t.min()) < 0
+                or float(t.max()) > 255 or not torch.equal(t, t.floor())):
+            raise AssertionError(f"{name}: output limbs are not integers "
+                                 "in [0, 255]")
+
+
+def phase_k3(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
+    """The doubling at `width` lanes: random points, negatives and
+    identities, then outputs of an earlier add (general Z). Across
+    kernels: 2P and the add kernel's P + P are the same affine points."""
+    f, iL, iR, _mask, pool = add_case(torch, np, hc, fm, curve,
+                                      ints_to_limbs, dev, width)
+    worst = 0
+    for p in (f, curve.masked_add(f, f, iL=iL, iR=iR)):
+        got = curve.double(p)
+        worst = max(worst, max_abs_err(torch, got, curve.double_plain(p)))
+    n = len(pool)
+    head = tuple(c[:, :n].contiguous() for c in f)
+    doubled = curve.to_affine_host(curve.double(head))
+    same_point = (doubled == curve.to_affine_host(curve.add(head, head))
+                  == [hc.g1_double(q) for q in pool])
+    return {"phase": "parity_point_double", "tolerance": 0, "lanes": width,
+            "max_abs_err": worst, "double_equals_self_add_affine": same_point,
+            "affine_points_checked": n}
+
+
+def phase_k4(torch, np, fm, f8, ints_to_limbs, dev):
+    """The 8-bit-limb Montgomery multiply, Fq and Fr, at the decomp width
+    and the scan's conversion width, on random operands plus the
+    adversarial ones of tests/test_lm8_kernels.py; against the plain
+    float32 body and against the 16-bit-limb kernel's re-limbed output."""
+    rng = np.random.default_rng(2)
+    worst = worst_cross = 0
+    checked = []
+    for spec in (fm.FQ, fm.FR):
+        mod = spec.modulus
+        adv_a = [0, 1, mod - 1, mod - 2, (1 << 256) % mod,
+                 ((1 << 256) - 1) % mod]
+        adv_b = [0, mod - 1, mod - 1, 1, 2, ((1 << 255) - 1) % mod]
+        for width in MONT_MUL8_WIDTHS:
+            a = random_field(np, rng, mod, width)
+            b = random_field(np, rng, mod, width)
+            a[:len(adv_a)] = ints_to_limbs(adv_a)
+            b[:len(adv_b)] = ints_to_limbs(adv_b)
+            A16 = torch.from_numpy(a.T.astype(np.int32).copy()).to(dev)
+            B16 = torch.from_numpy(b.T.astype(np.int32).copy()).to(dev)
+            A, B = f8.expand16_to8(A16), f8.expand16_to8(B16)
+            got = f8.mont_mul(A, B, spec)
+            check_limbs8(torch, "mont_mul8", got)
+            err = max_abs_err(torch, got, f8.mont_mul_body(A, B, spec))
+            cross = max_abs_err(
+                torch, got, f8.expand16_to8(fm.mont_mul(A16, B16, spec)))
+            worst, worst_cross = max(worst, err), max(worst_cross, cross)
+            checked.append([spec.kernel_id, width, err, cross])
+    return {"phase": "parity_mont_mul8", "tolerance": 0,
+            "max_abs_err": max(worst, worst_cross),
+            "max_abs_err_vs_plain": worst,
+            "max_abs_err_vs_relimbed_u16_kernel": worst_cross,
+            "checked": checked}
+
+
+def phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev, width):
+    """The 8-bit-limb point add at the scan's width on the point add's
+    cases, fused gathers and mask: against the plain float32 version, and
+    against the 16-bit-limb kernel's re-limbed output on the same
+    points."""
+    f16, iL, iR, mask, _pool = add_case(torch, np, hc, fm, curve,
+                                        ints_to_limbs, dev, width)
+    ops8 = curve.OPS8
+    p16 = f16
+    p8 = tuple(f8.expand16_to8(c) for c in f16)
+    worst = worst_cross = 0
+    for _ in range(2):  # round 2 adds general projective points
+        got = ops8.masked_add(p8, p8, mask, iL, iR)
+        check_limbs8(torch, "point_add8", *got)
+        worst = max(worst, max_abs_err(
+            torch, got, ops8.masked_add_plain(p8, p8, mask, iL, iR)))
+        got16 = curve.masked_add(p16, p16, mask, iL, iR)
+        worst_cross = max(worst_cross, max_abs_err(
+            torch, got, tuple(f8.expand16_to8(c) for c in got16)))
+        p8, p16 = got, got16
+    return {"phase": "parity_point_add8", "tolerance": 0, "lanes": width,
+            "max_abs_err": max(worst, worst_cross),
+            "max_abs_err_vs_plain": worst,
+            "max_abs_err_vs_relimbed_u16_kernel": worst_cross}
 
 
 def phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev):
@@ -273,7 +400,8 @@ def phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev):
 
 
 def phase_forest(torch, np, hc, msm_forest, msm, ints_to_limbs, dev):
-    """Returns the phase line and the forest's device-stage inputs."""
+    """Returns the phase line, the forest's device-stage inputs, and the
+    case (scalar limbs, point limbs, sizes, the host MSM's answers)."""
     from halo2_verifier_tpu_torch.ops.constants import G1_GEN, R
 
     sizes = list(FOREST_SIZES)
@@ -283,7 +411,8 @@ def phase_forest(torch, np, hc, msm_forest, msm, ints_to_limbs, dev):
     x = ints_to_limbs([p[0] for p in pts])
     y = ints_to_limbs([p[1] for p in pts])
     t0 = time.time()
-    plan = msm_forest.host_plan(ints_to_limbs(sc), sizes)
+    s_np = ints_to_limbs(sc)
+    plan = msm_forest.host_plan(s_np, sizes)
     arr = msm_forest.dispatch_planned(x, y, plan, dev)
     got = msm.combine_window_totals_grouped(arr.cpu().numpy(), len(sizes))
     dt = time.time() - t0
@@ -291,20 +420,54 @@ def phase_forest(torch, np, hc, msm_forest, msm, ints_to_limbs, dev):
             hc.g1_msm(sc[sizes[0]:], pts[sizes[0]:])]
     return ({"phase": "forest_msm", "points": len(pts), "groups": sizes,
              "equal_to_host_msm": got == want, "seconds": round(dt, 3)},
-            (x, y, plan, dev))
+            (x, y, plan, dev), (s_np, x, y, sizes, want))
 
 
-def phase_main(torch, kernels, weights, BatchVerifier, n_batches):
-    params, vk, items = weights.load_k14_mac_fixture()
+def phase_scan_msm(torch, msm_scan, msm, weights, case, dev):
+    """One scan MSM of a batch's size in each limb backend against the
+    exact host MSM; the f8 window totals are the re-limbed u16 totals.
+    Returns the phase line and the scan's device-stage inputs."""
+    s_np, x, y, sizes, want = case
+    t0 = time.time()
+    idx, keys, levels = msm_scan.host_plan(s_np, sizes)
+    plan_s = time.time() - t0
+    totals, equal = {}, {}
+    for backend in ("u16", "f8"):
+        arr = msm_scan.msm_window_totals_grouped(
+            x, y, idx, keys, len(sizes), levels, dev, backend=backend)
+        totals[backend] = arr.cpu().numpy()
+        equal[backend] = msm.combine_window_totals_grouped(
+            totals[backend], len(sizes)) == want
+    relimbed = bool((weights.limbs16_to_limbs8(totals["u16"])
+                     == totals["f8"]).all())
+    return ({"phase": "scan_msm", "points": int(s_np.shape[0]),
+             "groups": sizes, "lanes": int(idx.shape[0]), "levels": levels,
+             "bucket_grid": [len(sizes) * 32, 256],
+             "host_plan_seconds": round(plan_s, 4),
+             "equal_to_host_msm": equal,
+             "f8_totals_equal_relimbed_u16_totals": relimbed},
+            (x, y, idx, keys, len(sizes), levels, dev))
+
+
+def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
+                 expect, **verifier_args):
+    """One path through the entry point: a stream of n_batches batches of
+    1,024 proofs on a fresh verifier, every batch ok. The launch counts
+    are set to 0 just before the stream and read just after it; every
+    kernel named in `expect` must have launched, and no other kernel of
+    the other limb format may have. Returns the phase line, the path's
+    record (launches, lanes, widest launches, batches) and the warm
+    verifier."""
+    params, vk, items = fixture
     batch = [items[i % len(items)] for i in range(BATCH)]
-    bv = BatchVerifier(params, vk)
+    bv = BatchVerifier(params, vk, **verifier_args)
     stamps = []
     kernels.reset_launches(record=True)
     t0 = time.time()
     for r in bv.verify_stream(batch for _ in range(n_batches)):
         stamps.append(time.time())
         if not r.ok:
-            raise AssertionError(f"main-path batch {len(stamps)} failed")
+            raise AssertionError(f"{phase}: batch {len(stamps)} failed")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     lanes = dict(kernels.LANES)
@@ -314,14 +477,28 @@ def phase_main(torch, kernels, weights, BatchVerifier, n_batches):
     if bv.decomp_points_dispatched == 0:
         raise AssertionError("the sqrt pre-pass did not run")
     for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} never launched")
+        if name in expect and n == 0:
+            raise AssertionError(f"{phase}: kernel {name} never launched")
+        if name not in expect and n != 0:
+            raise AssertionError(f"{phase}: kernel {name} launched {n} "
+                                 "times on a path that does not hold it")
     steady = (len(stamps) - 1) * BATCH / (stamps[-1] - stamps[0])
+    # a result is yielded two batches late, and the last two together when
+    # the stream ends, so over a few batches the rate above reads high
+    # (by 7/5 over 8 batches); the paced rate leaves those two out, and
+    # the main thread's three timed stages are summed beside it
+    paced = (len(stamps) - 3) * BATCH / (stamps[-3] - stamps[0])
+    main_thread = sum(bv.timings.totals[k] for k in
+                      ("host_replay", "host_assemble", "device_msm_dispatch"))
     result = {
-        "phase": "main_path", "batches": n_batches, "batch_size": BATCH,
+        "phase": phase, "batches": n_batches, "batch_size": BATCH,
+        **{k: str(v) for k, v in verifier_args.items()},
         "all_ok": True, "fast_path": "vm_raw",
         "proofs_per_s_steady": round(steady, 1),
         "rate_basis": "marginal over batches 2..k",
+        "proofs_per_s_paced": round(paced, 1),
+        "paced_basis": "marginal over batches 2..k-2",
+        "main_thread_ms_per_batch": round(main_thread / n_batches * 1e3, 2),
         "first_batch_seconds": round(stamps[0] - t0, 3),
         "wall_seconds": round(stamps[-1] - t0, 3),
         "stages": bv.timings.report(),
@@ -329,115 +506,235 @@ def phase_main(torch, kernels, weights, BatchVerifier, n_batches):
         "msm_entries_dispatched": bv.msm_entries_dispatched,
         "decomp_points_dispatched": bv.decomp_points_dispatched,
         "launches": launches,
+        "launches_per_batch": {k: round(v / n_batches, 2)
+                               for k, v in launches.items() if v},
         "lanes": lanes,
     }
-    return result, widest, (params, vk, items), bv
+    record = {"launches": launches, "lanes": lanes, "widest": widest,
+              "batches": n_batches}
+    return result, record, bv
 
 
-def phase_tamper(torch, kernels, BatchVerifier, fixture):
+def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
+                 **verifier_args):
     from halo2_verifier_tpu_torch.ops.constants import R
 
     params, vk, items = fixture
     batch = list(items[:TAMPER_BATCH])
     p, inst = batch[TAMPER_INDEX]
     batch[TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
-    bv = BatchVerifier(params, vk)
+    bv = BatchVerifier(params, vk, **verifier_args)
     kernels.reset_launches()
     (res,) = list(bv.verify_stream([batch]))
     torch.cuda.synchronize()
     if res.ok or res.failed_indices != [TAMPER_INDEX]:
-        raise AssertionError(f"tampered batch: ok={res.ok} "
+        raise AssertionError(f"{phase}: ok={res.ok} "
                              f"failed={res.failed_indices}")
-    return {"phase": "tampered_batch", "proofs": TAMPER_BATCH,
+    return {"phase": phase, "proofs": TAMPER_BATCH,
             "ok": res.ok, "failed_indices": res.failed_indices,
             "launches": dict(kernels.LAUNCHES)}
 
 
-def phase_timings(torch, card, kernels, main_res, widest, n_batches, curve,
-                  fm, decomp):
-    """Each kernel at the widest main-path launch's own arguments, the
-    plain version on the same inputs, and the bound for those inputs."""
-    rows = []
-    for name, src, replaces in (
-        ("mont_mul", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
-         "halo2_verifier_tpu/ops/lmfield.py:431"),
-        ("point_add", "halo2_verifier_tpu_torch/csrc/point_add.cu",
-         "halo2_verifier_tpu/ops/lmcurve.py:53"),
-        ("sqrt_principal", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
-         "halo2_verifier_tpu/ops/lmfield.py:431 (via "
-         "halo2_verifier_tpu/ops/decomp_jax.py:54)"),
-    ):
-        b, args = widest[name]
-        fn = getattr(kernels, name)
-        if name == "mont_mul":
-            a, bb, field_id = args
-            spec = fm.FQ if field_id == 0 else fm.FR
+def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
+    """The doubling's path: its public entry, ops/curve.double, at the
+    parity width (neither package's verifier doubles on the device; the
+    reference's kernel is reached through lmcurve.double alone). Counts
+    are set to 0 just before and read just after."""
+    f, _iL, _iR, _mask, pool = add_case(torch, np, hc, fm, curve,
+                                        ints_to_limbs, dev,
+                                        POINT_DOUBLE_WIDTH)
+    kernels.reset_launches(record=True)
+    out = curve.double(curve.double(f))
+    torch.cuda.synchronize()
+    record = {"launches": dict(kernels.LAUNCHES),
+              "lanes": dict(kernels.LANES), "widest": dict(kernels.WIDEST),
+              "batches": 1}
+    n = len(pool)
+    quad = curve.to_affine_host(tuple(c[:, :n] for c in out))
+    ok = quad == [hc.g1_double(hc.g1_double(q)) for q in pool]
+    if not ok or record["launches"]["point_double"] != 2:
+        raise AssertionError("double_path: 4P differs from the host curve's")
+    return ({"phase": "double_path", "entry": "ops/curve.double",
+             "lanes": POINT_DOUBLE_WIDTH, "equal_to_host_curve": ok,
+             "launches": record["launches"]}, record)
 
+
+# name, source, TPU kernel it replaces, the path whose run gives its row
+KERNELS = (
+    ("mont_mul", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
+     "halo2_verifier_tpu/ops/lmfield.py:431", "main_path"),
+    ("point_add", "halo2_verifier_tpu_torch/csrc/point_add.cu",
+     "halo2_verifier_tpu/ops/lmcurve.py:53", "main_path"),
+    ("sqrt_principal", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
+     "halo2_verifier_tpu/ops/lmfield.py:431 (via "
+     "halo2_verifier_tpu/ops/decomp_jax.py:54)", "main_path"),
+    ("point_double", "halo2_verifier_tpu_torch/csrc/point_double.cu",
+     "halo2_verifier_tpu/ops/lmcurve.py:264", "double_path"),
+    ("mont_mul8", "halo2_verifier_tpu_torch/csrc/mont_mul8.cu",
+     "halo2_verifier_tpu/ops/lmfield8.py:247", "scan_path_f8"),
+    ("point_add8", "halo2_verifier_tpu_torch/csrc/point_add8.cu",
+     "halo2_verifier_tpu/ops/lmcurve.py:53 (instance OPS8, :213)",
+     "scan_path_f8"),
+)
+
+
+def kernel_case(name, args, curve, fm, f8, decomp):
+    """(plain version, bytes, operations) of one recorded launch: each
+    input read once and each output written once; operations as this
+    launch's data needs them (a masked-out lane of the point add only
+    copies its point)."""
+    if name in ("mont_mul", "mont_mul8"):
+        a, bb, field_id = args
+        spec = fm.FQ if field_id == 0 else fm.FR
+        elem, pack = FORMAT[name]
+        b = a.shape[1]
+        if name == "mont_mul":
             def plain():
                 return fm.mont_mul_body(a.long(), bb.long(), spec).int()
-
-            nbytes = 3 * LIMB_BYTES * b
-            ops = (OPS_MONT_MUL + 3 * OPS_PACK) * b
-            got, want = fn(*args), plain()
-        elif name == "point_add":
-            p, q, mask, iL, iR = args  # as ops/curve.masked_add calls it
-
-            def plain():
-                return curve.masked_add_plain(p, q, mask, iL, iR)
-
-            wp, wq = p[0].shape[1], q[0].shape[1]
-            same = p[0].data_ptr() == q[0].data_ptr()
-            nbytes = (3 * LIMB_BYTES * (wp + (0 if same else wq))
-                      + 4 * b * ((iL is not None) + (iR is not None))
-                      + (b if mask is not None else 0)
-                      + 3 * LIMB_BYTES * b)
-            ops = OPS_POINT_ADD * b
-            got, want = fn(*args), plain()
         else:
-            (xs,) = args
-
             def plain():
-                return decomp.y_principal_plain(xs)
+                return f8.mont_mul_body(a, bb, spec)
+        return plain, 3 * elem * b, (OPS_MONT_MUL + 3 * pack) * b
+    if name in ("point_add", "point_add8"):
+        p, q, mask, iL, iR = args  # as PointOps.masked_add calls it
+        ops_ = curve.OPS16 if name == "point_add" else curve.OPS8
+        elem, pack = FORMAT[name]
 
-            nbytes = 2 * LIMB_BYTES * b
-            ops = OPS_SQRT * b
-            got, want = fn(*args), plain()
-        err = max_abs_err(torch, got, want)
-        ms = time_ms(torch, lambda: fn(*args), reps=20)
-        plain_ms = time_ms(torch, plain, reps=1 if name == "sqrt_principal"
-                           else 3)
-        bound_ms, bound_by = card.bound(nbytes, ops)
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": main_res["launches"][name],
-            "launches_per_batch": round(
-                main_res["launches"][name] / n_batches, 2),
-            "lanes": b, "max_abs_err": err, "ms": round(ms, 4),
-            "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
-            "bound_by": bound_by, "library_ms": None,
-            "lanes_per_batch": round(main_res["lanes"][name] / n_batches),
-        })
-    return rows
+        def plain():
+            return ops_.masked_add_plain(p, q, mask, iL, iR)
+
+        wp, wq = p[0].shape[1], q[0].shape[1]
+        b = iL.shape[0] if iL is not None else (
+            iR.shape[0] if iR is not None else wp)
+        same = p[0].data_ptr() == q[0].data_ptr()
+        nbytes = (3 * elem * (wp + (0 if same else wq))
+                  + 4 * b * ((iL is not None) + (iR is not None))
+                  + (b if mask is not None else 0)
+                  + 3 * elem * b)
+        active = b if mask is None else int(mask.sum())
+        add_ops = (12 * OPS_MONT_MUL + 27 * OPS_ADD_SUB + 9 * pack)
+        return plain, nbytes, add_ops * active + 6 * pack * (b - active)
+    if name == "point_double":
+        (p,) = args
+        b = p[0].shape[1]
+        return (lambda: curve.double_plain(p), 2 * 3 * LIMB_BYTES * b,
+                OPS_POINT_DOUBLE * b)
+    (xs,) = args
+    b = xs.shape[1]
+    return (lambda: decomp.y_principal_plain(xs), 2 * LIMB_BYTES * b,
+            OPS_SQRT * b)
+
+
+def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
+    """One kernel at its widest recorded launch's own arguments: the
+    kernel, the plain version on the same inputs, and the bound for those
+    inputs."""
+    b, args = record["widest"][name]
+    fn = getattr(kernels, name)
+    plain, nbytes, ops = kernel_case(name, args, curve, fm, f8, decomp)
+    err = max_abs_err(torch, fn(*args), plain())
+    ms = time_ms(torch, lambda: fn(*args), reps=20)
+    plain_ms = time_ms(torch, plain,
+                       reps=1 if name == "sqrt_principal" else 3)
+    bound_ms, bound_by = card.bound(nbytes, ops)
+    n = record["batches"]
+    return {
+        "launches": record["launches"][name],
+        "launches_per_batch": round(record["launches"][name] / n, 2),
+        "lanes": b, "max_abs_err": err, "ms": round(ms, 4),
+        "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
+        "bound_by": bound_by, "library_ms": None,
+        "bytes": nbytes, "operations": ops,
+        "lanes_per_batch": round(record["lanes"][name] / n),
+    }
+
+
+def phase_timings(torch, card, kernels, records, curve, fm, f8, decomp):
+    """The kernels' rows, each on its own path's record, and the
+    16-bit-limb kernels once more at the scan path's widest launches, to
+    stand beside the 8-bit-limb kernels on the same work."""
+    rows = []
+    for name, src, replaces, path in KERNELS:
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "path": path,
+                     **time_kernel(torch, card, kernels, name, records[path],
+                                   curve, fm, f8, decomp)})
+    beside = [
+        {"phase": f"timing_scan_path_u16_{name}", "name": name,
+         "path": "scan_path_u16",
+         **time_kernel(torch, card, kernels, name, records["scan_path_u16"],
+                       curve, fm, f8, decomp)}
+        for name in ("mont_mul", "point_add")
+    ]
+    return rows, beside
+
+
+def device_times(prof):
+    """Device time in microseconds by kernel or copy name, from a
+    torch.profiler profile."""
+    from torch.autograd import DeviceType
+
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+    return dev
+
+
+def stage_ms(torch, fn, reps=10):
+    """A device stage's stream time per call (CUDA events around `reps`
+    calls, host enqueue and uploads included) and the device's busy time
+    per call, in all and by kernel name (the profiler's device-side events
+    over 3 further calls; None where the profiler reports no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(torch, fn, reps=reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    dev = device_times(prof)
+    busy = sum(dev.values()) / 1e3 / 3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    return {"ms_per_batch": round(ms, 4),
+            "device_busy_ms_per_batch": round(busy, 4) if busy else None,
+            "device_ms_per_batch_by_name": {
+                k[:60]: round(v / 1e3 / 3, 4) for k, v in top}}
 
 
 def phase_forest_batch(torch, msm_forest, forest_inputs):
     """The whole device stage (upload, conversion, forest levels, bucket
     phase) of the batch-sized forest of phase 4, on its inputs."""
     x_np, y_np, plan, dev = forest_inputs
-    ms = time_ms(torch, lambda: msm_forest.dispatch_planned(
-        x_np, y_np, plan, dev), reps=10)
-    return {"phase": "timing_forest_batch", "ms_per_batch": round(ms, 4),
+    return {"phase": "timing_forest_batch",
+            **stage_ms(torch, lambda: msm_forest.dispatch_planned(
+                x_np, y_np, plan, dev)),
             "forest_levels": len(plan["levels"]),
             "level0_lanes": int(plan["point_idx0"].shape[0]),
             "entries": int(plan["entries"]), "plan_adds": int(plan["adds"])}
+
+
+def phase_scan_batch(torch, msm_scan, scan_inputs, backend):
+    """The whole device stage (uploads, gather, conversion, segmented
+    scan, bucket suffix scans) of the batch-sized scan MSM of phase 4 in
+    one limb backend, on its inputs."""
+    x_np, y_np, idx, keys, groups, levels, dev = scan_inputs
+    return {"phase": f"timing_scan_batch_{backend}",
+            **stage_ms(torch, lambda: msm_scan.msm_window_totals_grouped(
+                x_np, y_np, idx, keys, groups, levels, dev,
+                backend=backend)),
+            "lanes": int(idx.shape[0]),
+            "levels": levels,
+            "point_add_lanes": msm_scan.scan_lanes(
+                int(idx.shape[0]), groups * 32, levels)}
 
 
 def phase_profile(torch, bv, fixture, n_batches):
     """Device busy share of a whole stream on the warm verifier of the
     main path: the profiler's device-side events (kernels and copies)
     over the stream's wall time, and device time by kernel name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _params, _vk, items = fixture
@@ -450,10 +747,7 @@ def phase_profile(torch, bv, fixture, n_batches):
                 raise AssertionError("profiled batch failed")
         torch.cuda.synchronize()
         wall = time.time() - t0
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
-            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+    dev = device_times(prof)
     busy_s = sum(dev.values()) / 1e6
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"phase": "profile", "batches": n_batches,
@@ -492,8 +786,8 @@ def run(torch, card, dev, n_batches, make_verifier):
 
     from halo2_verifier_tpu_torch import weights
     from halo2_verifier_tpu_torch.ops import (
-        curve, decomp, field as fm, hostcurve as hc, kernels, msm,
-        msm_forest)
+        curve, decomp, field as fm, field8 as f8, hostcurve as hc, kernels,
+        msm, msm_forest, msm_scan)
     from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 
     def emit(res):
@@ -513,21 +807,57 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev,
                   POINT_ADD_WIDTH))
     emit(phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev))
-    forest_res, forest_inputs = phase_forest(torch, np, hc, msm_forest, msm,
-                                             ints_to_limbs, dev)
+    if not emit(phase_k3(torch, np, hc, fm, curve, ints_to_limbs, dev,
+                         POINT_DOUBLE_WIDTH))["double_equals_self_add_affine"]:
+        raise AssertionError("2P differs from P + P as affine points")
+    emit(phase_k4(torch, np, fm, f8, ints_to_limbs, dev))
+    emit(phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev,
+                  SCAN_LANES))
+    forest_res, forest_inputs, case = phase_forest(
+        torch, np, hc, msm_forest, msm, ints_to_limbs, dev)
     if not emit(forest_res)["equal_to_host_msm"]:
         raise AssertionError("forest MSM differs from the host MSM")
+    scan_res, scan_inputs = phase_scan_msm(torch, msm_scan, msm, weights,
+                                           case, dev)
+    emit(scan_res)
+    if not (all(scan_res["equal_to_host_msm"].values())
+            and scan_res["f8_totals_equal_relimbed_u16_totals"]):
+        raise AssertionError("scan MSM differs from the host MSM, or its "
+                             "f8 totals from the re-limbed u16 totals")
 
-    main_res, widest, fixture, bv = phase_main(torch, kernels, weights,
-                                               make_verifier, n_batches)
+    fixture = weights.load_k14_mac_fixture()
+    records = {}
+    u16_kernels = ("mont_mul", "point_add", "sqrt_principal")
+    main_res, records["main_path"], bv = phase_stream(
+        torch, kernels, fixture, make_verifier, n_batches, "main_path",
+        u16_kernels)
     emit(main_res)
-    emit(phase_tamper(torch, kernels, make_verifier, fixture))
-    rows = phase_timings(torch, card, kernels, main_res, widest, n_batches,
-                         curve, fm, decomp)
+    emit(phase_tamper(torch, kernels, make_verifier, fixture,
+                      "tampered_batch"))
+    for backend, expect in (("u16", u16_kernels),
+                            ("f8", ("mont_mul8", "point_add8",
+                                    "sqrt_principal"))):
+        path = f"scan_path_{backend}"
+        res, records[path], _bv = phase_stream(
+            torch, kernels, fixture, make_verifier, SCAN_BATCHES[backend],
+            path, expect, msm="scan", limb_backend=backend)
+        emit(res)
+    emit(phase_tamper(torch, kernels, make_verifier, fixture,
+                      "tampered_batch_scan", msm="scan"))
+    double_res, records["double_path"] = phase_double_path(
+        torch, np, hc, fm, curve, kernels, ints_to_limbs, dev)
+    emit(double_res)
+
+    rows, beside = phase_timings(torch, card, kernels, records, curve, fm,
+                                 f8, decomp)
     emit(phase_forest_batch(torch, msm_forest, forest_inputs))
+    for backend in ("u16", "f8"):
+        emit(phase_scan_batch(torch, msm_scan, scan_inputs, backend))
     emit(phase_profile(torch, bv, fixture, n_batches))
     for r in rows:
         emit({"phase": f"timing_{r['name']}", **r})
+    for r in beside:
+        emit(r)
     out({"phase": "done", "seconds": round(time.time() - t_start, 3), **tag})
     out(card.smi)
     out({"kernels": rows})

@@ -1,8 +1,9 @@
 // BN254 Fq/Fr Montgomery arithmetic for Hopper kernels (sm_90a).
 //
-// Device functions shared by the Montgomery-multiply kernel (mont_mul.cu),
-// the fused square-root kernel (mont_mul.cu) and the point-add kernel
-// (point_add.cu). An element lives in registers as eight 32-bit words,
+// Device functions shared by the Montgomery-multiply kernels (mont_mul.cu,
+// mont_mul8.cu), the fused square-root kernel (mont_mul.cu) and the point
+// kernels (point_add.cu, point_add8.cu, point_double.cu, through
+// point.cuh). An element lives in registers as eight 32-bit words,
 // little-endian; in device memory it is the reference's limbs-major layout,
 // (16, W) int32 rows of 16-bit limbs, limb k of lane i at base[k * W + i],
 // so the 32 lanes of a warp read 32 neighbouring words of each limb row.
@@ -54,6 +55,67 @@ __device__ __forceinline__ void store_fe(int32_t* __restrict__ base,
         base[(2 * j + 1) * width + lane] = (int32_t)(a.w[j] >> 16);
     }
 }
+
+// The second limb format (halo2_verifier_tpu/ops/lmfield8.py): (32, W)
+// float32 rows of 8-bit limbs, limb k of lane i at base[k * W + i], each an
+// integer in [0, 255]. Word j holds limbs 4j..4j+3. Montgomery R is 2^256
+// in both formats, so the words, and all arithmetic on them, are the same.
+__device__ __forceinline__ Fe load_fe8(const float* __restrict__ base,
+                                       long long width, long long lane) {
+    Fe r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            w |= (uint32_t)base[(4 * j + k) * width + lane] << (8 * k);
+        r.w[j] = w;
+    }
+    return r;
+}
+
+__device__ __forceinline__ void store_fe8(float* __restrict__ base,
+                                          long long width, long long lane,
+                                          const Fe& a) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            base[(4 * j + k) * width + lane] =
+                (float)((a.w[j] >> (8 * k)) & 0xFFu);
+    }
+}
+
+// The two formats as types, for kernels written once over both.
+struct Limbs16 {
+    using T = int32_t;
+    static __device__ __forceinline__ Fe load(const T* __restrict__ base,
+                                              long long width,
+                                              long long lane) {
+        return load_fe(base, width, lane);
+    }
+    static __device__ __forceinline__ void store(T* __restrict__ base,
+                                                 long long width,
+                                                 long long lane,
+                                                 const Fe& a) {
+        store_fe(base, width, lane, a);
+    }
+};
+
+struct Limbs8 {
+    using T = float;
+    static __device__ __forceinline__ Fe load(const T* __restrict__ base,
+                                              long long width,
+                                              long long lane) {
+        return load_fe8(base, width, lane);
+    }
+    static __device__ __forceinline__ void store(T* __restrict__ base,
+                                                 long long width,
+                                                 long long lane,
+                                                 const Fe& a) {
+        store_fe8(base, width, lane, a);
+    }
+};
 
 // x - N if x >= N else x (lmfield.cond_sub_n)
 template <int F>

@@ -13,96 +13,25 @@
 // P + (-P) need no branch, which the planner's (identity, identity)
 // padding lanes rely on.
 //
-// Design: one thread per output lane. It reads its two input points
-// straight from the frontier by index (the TPU path materialized both
-// gathers in HBM first), keeps all intermediates in registers as eight
-// 32-bit words each, and writes X3, Y3, Z3 once.
+// Design (the kernel itself is point.cuh `point_add_kernel`, shared with
+// the 8-bit-limb entry of point_add8.cu): one thread per output lane. It
+// reads its two input points straight from the frontier by index (the TPU
+// path materialized both gathers in HBM first), keeps all intermediates in
+// registers as eight 32-bit words each, and writes X3, Y3, Z3 once.
 //
-// Bound on this card: a lane moves about 200 B (two gathered 96 B points
-// read once, 8 B of indices, 96 B written; the level-0 frontier is read
-// about once over the launch) and needs at least 4,152 32-bit integer
-// operations (12 Montgomery products of 280 with fused multiply-add carry
-// chains, 27 modular adds/subtracts of 24, packing of 9 elements): ~21
-// op/B against the card's ~5 op/B balance point, so the add is bound by
-// integer throughput, as the TPU kernel was (~55k VPU operations per add in
-// the reference's own count, bench.py). The 32-bit CIOS cuts that count
-// several-fold; bringing the kernel closer to the card's rate (PTX carry
-// chains, more independent work per warp) is later work.
+// Bound on this card: a lane moves up to 584 B (two gathered 192 B points,
+// 8 B of indices, 192 B written; a forest level reads its frontier about
+// once over the launch, which halves the reads) and needs at least 4,152
+// 32-bit integer operations (12 Montgomery products of 280 with fused
+// multiply-add carry chains, 27 modular adds/subtracts of 24, packing of
+// 9 elements): 7-11 op/B against the card's ~5 op/B balance point, so the
+// add is bound by integer throughput, as the TPU kernel was (~55k VPU
+// operations per add in the reference's own count, bench.py). The 32-bit
+// CIOS cuts that count several-fold; bringing the kernel closer to the
+// card's rate (PTX carry chains, more independent work per warp) is later
+// work.
 
-#include <cuda_runtime.h>
-
-#include "field.cuh"
-
-namespace {
-
-using h2v::Fe;
-
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
-    return h2v::mont_mul<0>(a, b);
-}
-__device__ __forceinline__ Fe ad(const Fe& a, const Fe& b) {
-    return h2v::add<0>(a, b);
-}
-__device__ __forceinline__ Fe sb(const Fe& a, const Fe& b) {
-    return h2v::sub<0>(a, b);
-}
-
-// x * 3b = x * 9 by the reference's add chain
-__device__ __forceinline__ Fe mul_b3(const Fe& x) {
-    Fe d1 = ad(x, x);
-    Fe d2 = ad(d1, d1);
-    Fe d3 = ad(d2, d2);
-    return ad(d3, x);
-}
-
-__global__ void __launch_bounds__(kThreads)
-point_add_kernel(const int32_t* __restrict__ px,
-                 const int32_t* __restrict__ py,
-                 const int32_t* __restrict__ pz, long long wp,
-                 const int32_t* __restrict__ qx,
-                 const int32_t* __restrict__ qy,
-                 const int32_t* __restrict__ qz, long long wq,
-                 const int32_t* __restrict__ il,
-                 const int32_t* __restrict__ ir,
-                 const uint8_t* __restrict__ mask,
-                 int32_t* __restrict__ ox, int32_t* __restrict__ oy,
-                 int32_t* __restrict__ oz, long long width) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= width) return;
-    long long l = il ? (long long)il[i] : i;
-    Fe X1 = h2v::load_fe(px, wp, l);
-    Fe Y1 = h2v::load_fe(py, wp, l);
-    Fe Z1 = h2v::load_fe(pz, wp, l);
-    if (mask && !mask[i]) {
-        h2v::store_fe(ox, width, i, X1);
-        h2v::store_fe(oy, width, i, Y1);
-        h2v::store_fe(oz, width, i, Z1);
-        return;
-    }
-    long long r = ir ? (long long)ir[i] : i;
-    Fe X2 = h2v::load_fe(qx, wq, r);
-    Fe Y2 = h2v::load_fe(qy, wq, r);
-    Fe Z2 = h2v::load_fe(qz, wq, r);
-
-    Fe t0 = mul(X1, X2);
-    Fe t1 = mul(Y1, Y2);
-    Fe t2 = mul(Z1, Z2);
-    Fe t3 = sb(mul(ad(X1, Y1), ad(X2, Y2)), ad(t0, t1));
-    Fe t4 = sb(mul(ad(Y1, Z1), ad(Y2, Z2)), ad(t1, t2));
-    Fe y3 = sb(mul(ad(X1, Z1), ad(X2, Z2)), ad(t0, t2));
-    Fe t2b = mul_b3(t2);
-    Fe x3 = ad(ad(t0, t0), t0);
-    Fe z3 = ad(t1, t2b);
-    Fe t1m = sb(t1, t2b);
-    Fe y3b = mul_b3(y3);
-    h2v::store_fe(ox, width, i, sb(mul(t3, t1m), mul(t4, y3b)));
-    h2v::store_fe(oy, width, i, ad(mul(y3b, x3), mul(t1m, z3)));
-    h2v::store_fe(oz, width, i, ad(mul(z3, t4), mul(x3, t3)));
-}
-
-}  // namespace
+#include "point.cuh"
 
 extern "C" int h2v_point_add(const int32_t* px, const int32_t* py,
                              const int32_t* pz, long long wp,
@@ -111,8 +40,7 @@ extern "C" int h2v_point_add(const int32_t* px, const int32_t* py,
                              const int32_t* il, const int32_t* ir,
                              const uint8_t* mask, int32_t* ox, int32_t* oy,
                              int32_t* oz, long long width, void* stream) {
-    unsigned int blocks = (unsigned int)((width + kThreads - 1) / kThreads);
-    point_add_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        px, py, pz, wp, qx, qy, qz, wq, il, ir, mask, ox, oy, oz, width);
-    return (int)cudaGetLastError();
+    return h2v::launch_point_add<h2v::Limbs16>(
+        px, py, pz, wp, qx, qy, qz, wq, il, ir, mask, ox, oy, oz, width,
+        stream);
 }

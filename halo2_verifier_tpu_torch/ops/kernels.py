@@ -13,8 +13,12 @@ one to its launch counter where it launches its kernel, and nowhere else;
 after reset_launches(record=True) it also keeps the arguments of its
 widest launch, so a caller can rerun exactly that launch.
 There is no fallback: a wrapper given CPU tensors raises (the plain
-versions live beside the callers, in ops/field.py, ops/curve.py and
-ops/decomp.py).
+versions live beside the callers, in ops/field.py, ops/field8.py,
+ops/curve.py and ops/decomp.py).
+
+Two limb formats cross this boundary: (16, B) int32 rows of 16-bit limbs
+and (32, B) float32 rows of 8-bit limbs. The float32 kernels take
+canonical limbs, integers in [0, 255], and do not pay for a check.
 """
 
 from __future__ import annotations
@@ -30,10 +34,15 @@ import torch
 
 from .limbs import NLIMBS
 
+NLIMBS8 = 32
+# limb format -> (rows, dtype)
+FORMATS = {"u16": (NLIMBS, torch.int32), "f8": (NLIMBS8, torch.float32)}
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("mont_mul.cu", "point_add.cu")
+SOURCES = ("mont_mul.cu", "point_add.cu", "point_double.cu",
+           "mont_mul8.cu", "point_add8.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,7 +51,8 @@ _build_lock = threading.Lock()
 _libs: dict = {}
 
 # launches and output lanes per kernel since the last reset_launches()
-LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "point_add": 0}
+LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "point_add": 0,
+            "point_double": 0, "mont_mul8": 0, "point_add8": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
@@ -129,31 +139,42 @@ def _lib(src: str):
     return lib
 
 
+_VP, _LL, _CI = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_POINT_ADD_ARGS = ([_VP, _VP, _VP, _LL] * 2 + [_VP, _VP, _VP]
+                   + [_VP, _VP, _VP, _LL, _VP])
+# source -> {C entry: argument types}; every entry returns an int
+SIGNATURES = {
+    "mont_mul.cu": {
+        "h2v_mont_mul": [_VP, _VP, _VP, _LL, _CI, _VP],
+        "h2v_sqrt_principal": [_VP, _VP, _LL, _VP],
+    },
+    "point_add.cu": {"h2v_point_add": _POINT_ADD_ARGS},
+    "point_double.cu": {"h2v_point_double": [_VP] * 6 + [_LL, _VP]},
+    "mont_mul8.cu": {"h2v_mont_mul8": [_VP, _VP, _VP, _LL, _CI, _VP]},
+    "point_add8.cu": {"h2v_point_add8": _POINT_ADD_ARGS},
+}
+
+
 def _load(src: str):
     build()
     so = os.path.join(BUILD_DIR, f"{src[:-3]}.{_digest()}.so")
     lib = ctypes.CDLL(so)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    if src == "mont_mul.cu":
-        lib.h2v_mont_mul.argtypes = [vp, vp, vp, ll, ci, vp]
-        lib.h2v_mont_mul.restype = ci
-        lib.h2v_sqrt_principal.argtypes = [vp, vp, ll, vp]
-        lib.h2v_sqrt_principal.restype = ci
-    else:
-        lib.h2v_point_add.argtypes = (
-            [vp, vp, vp, ll] * 2 + [vp, vp, vp] + [vp, vp, vp, ll, vp])
-        lib.h2v_point_add.restype = ci
+    for entry, argtypes in SIGNATURES[src].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = _CI
     return lib
 
 
-def _check_limbs(name, *ts):
+def _check_limbs(name, fmt, *ts):
+    rows, dtype = FORMATS[fmt]
     dev = ts[0].device
     for t in ts:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: expects CUDA tensors on one device")
-        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != NLIMBS:
-            raise ValueError(f"{name}: expects (16, B) int32 limbs, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        if t.dtype != dtype or t.dim() != 2 or t.shape[0] != rows:
+            raise ValueError(f"{name}: expects ({rows}, B) {dtype} limbs, "
+                             f"got {tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous limbs")
 
@@ -167,28 +188,38 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def mont_mul(a, b, field_id: int):
-    """K1: Montgomery product of (16, B) int32 limb tensors on the card,
-    canonical output. field_id 0 = Fq, 1 = Fr."""
-    _check_limbs("mont_mul", a, b)
+def _mont_mul(name, fmt, src, a, b, field_id):
+    _check_limbs(name, fmt, a, b)
     if a.shape != b.shape:
-        raise ValueError("mont_mul: operand shapes differ")
+        raise ValueError(f"{name}: operand shapes differ")
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    lib = _lib("mont_mul.cu")
+    entry = getattr(_lib(src), f"h2v_{name}")
     with torch.cuda.device(a.device):
-        rc = lib.h2v_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              a.shape[1], field_id, _stream(a.device))
-    _raise_on(rc, "mont_mul")
-    _count("mont_mul", a.shape[1], (a, b, field_id))
+        rc = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1],
+                   field_id, _stream(a.device))
+    _raise_on(rc, name)
+    _count(name, a.shape[1], (a, b, field_id))
     return out
+
+
+def mont_mul(a, b, field_id: int):
+    """K1: Montgomery product of (16, B) int32 limb tensors on the card,
+    canonical output. field_id 0 = Fq, 1 = Fr."""
+    return _mont_mul("mont_mul", "u16", "mont_mul.cu", a, b, field_id)
+
+
+def mont_mul8(a, b, field_id: int):
+    """K4: Montgomery product of (32, B) float32 tensors of canonical
+    8-bit limbs on the card, canonical output. field_id 0 = Fq, 1 = Fr."""
+    return _mont_mul("mont_mul8", "f8", "mont_mul8.cu", a, b, field_id)
 
 
 def sqrt_principal(xs):
     """K1, fused: (16, B) canonical x limbs -> canonical principal roots
     y0 = (x^3 + 3)^((q+1)/4) in one launch (decomp pre-pass)."""
-    _check_limbs("sqrt_principal", xs)
+    _check_limbs("sqrt_principal", "u16", xs)
     out = torch.empty_like(xs)
     if out.numel() == 0:
         return out
@@ -201,55 +232,90 @@ def sqrt_principal(xs):
     return out
 
 
-def point_add(p, q, mask=None, iL=None, iR=None):
-    """K2: out[i] = mask[i] ? P[i] + Q[i] : P[i] with the complete RCB15
-    add, P[i] = p[:, iL[i]] (or p[:, i]) and Q[i] = q[:, iR[i]] (or
-    q[:, i]). p, q: (X, Y, Z) tuples of (16, W) int32 Montgomery limbs;
-    iL/iR: int32 index tensors, in range (the caller's contract: the
-    forest validates its plan on the host); mask: bool or uint8.
-    Returns a (X, Y, Z) tuple of (16, B) views into one (3, 16, B)
-    tensor."""
+def point_double(p):
+    """K3: out[i] = 2 * P[i] with the complete RCB15 doubling. p: (X, Y, Z)
+    tuple of (16, B) int32 Montgomery limbs. Returns a (X, Y, Z) tuple of
+    (16, B) views into one (3, 16, B) tensor."""
+    _check_limbs("point_double", "u16", *p)
+    b = p[0].shape[1]
+    if any(c.shape[1] != b for c in p):
+        raise ValueError("point_double: coordinate widths differ")
+    out = torch.empty((3, NLIMBS, b), dtype=torch.int32, device=p[0].device)
+    if b == 0:
+        return out[0], out[1], out[2]
+    lib = _lib("point_double.cu")
+    with torch.cuda.device(p[0].device):
+        rc = lib.h2v_point_double(
+            *(c.data_ptr() for c in p),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b,
+            _stream(p[0].device))
+    _raise_on(rc, "point_double")
+    _count("point_double", b, (p,))
+    return out[0], out[1], out[2]
+
+
+def _point_add(name, fmt, src, p, q, mask, iL, iR):
     args = (p, q, mask, iL, iR)
-    _check_limbs("point_add", *p, *q)
+    rows, dtype = FORMATS[fmt]
+    _check_limbs(name, fmt, *p, *q)
     wp, wq = p[0].shape[1], q[0].shape[1]
     if any(c.shape[1] != wp for c in p) or any(c.shape[1] != wq for c in q):
-        raise ValueError("point_add: coordinate widths differ")
+        raise ValueError(f"{name}: coordinate widths differ")
     if iL is not None:
         b = iL.shape[0]
     elif iR is not None:
         b = iR.shape[0]
     else:
         b = wp
-    for name, idx, w in (("iL", iL, wp), ("iR", iR, wq)):
+    for side, idx, w in (("iL", iL, wp), ("iR", iR, wq)):
         if idx is None:
             if b != w:
-                raise ValueError(f"point_add: no {name} and width {w} != {b}")
+                raise ValueError(f"{name}: no {side} and width {w} != {b}")
             continue
         if (idx.dtype != torch.int32 or idx.dim() != 1 or idx.shape[0] != b
                 or idx.device != p[0].device or not idx.is_contiguous()):
-            raise ValueError(f"point_add: {name} must be a contiguous "
+            raise ValueError(f"{name}: {side} must be a contiguous "
                              f"({b},) int32 tensor on the card")
     if mask is not None:
         if mask.dtype == torch.bool:
             mask = mask.view(torch.uint8)
         if (mask.dtype != torch.uint8 or mask.shape != (b,)
                 or mask.device != p[0].device):
-            raise ValueError(f"point_add: mask must be ({b},) uint8/bool")
+            raise ValueError(f"{name}: mask must be ({b},) uint8/bool")
         mask = mask.contiguous()
-    out = torch.empty((3, NLIMBS, b), dtype=torch.int32, device=p[0].device)
+    out = torch.empty((3, rows, b), dtype=dtype, device=p[0].device)
     if b == 0:
         return out[0], out[1], out[2]
-    lib = _lib("point_add.cu")
+    entry = getattr(_lib(src), f"h2v_{name}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(p[0].device):
-        rc = lib.h2v_point_add(
+        rc = entry(
             *(c.data_ptr() for c in p), wp, *(c.data_ptr() for c in q), wq,
             ptr(iL), ptr(iR), ptr(mask),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b,
             _stream(p[0].device))
-    _raise_on(rc, "point_add")
-    _count("point_add", b, args)
+    _raise_on(rc, name)
+    _count(name, b, args)
     return out[0], out[1], out[2]
+
+
+def point_add(p, q, mask=None, iL=None, iR=None):
+    """K2: out[i] = mask[i] ? P[i] + Q[i] : P[i] with the complete RCB15
+    add, P[i] = p[:, iL[i]] (or p[:, i]) and Q[i] = q[:, iR[i]] (or
+    q[:, i]). p, q: (X, Y, Z) tuples of (16, W) int32 Montgomery limbs;
+    iL/iR: int32 index tensors, in range (the caller's contract: the
+    forest validates its plan on the host); mask: bool or uint8. The
+    output is a new tensor, so p or q may be read at any lane.
+    Returns a (X, Y, Z) tuple of (16, B) views into one (3, 16, B)
+    tensor."""
+    return _point_add("point_add", "u16", "point_add.cu", p, q, mask, iL, iR)
+
+
+def point_add8(p, q, mask=None, iL=None, iR=None):
+    """K5: point_add on (32, W) float32 tensors of canonical 8-bit limbs;
+    returns (32, B) views into one (3, 32, B) float32 tensor."""
+    return _point_add("point_add8", "f8", "point_add8.cu", p, q, mask, iL,
+                      iR)

@@ -421,17 +421,7 @@ def _grid_leaves(f, scatter_idx, leaf_idx, tw):
     Duplicate scatter indices occur only at the dump slot (the last one,
     where identity padding lands) and that slot is dropped, so which
     duplicate a non-deterministic index_put_ keeps does not matter."""
-    nslots = tw * NUM_BUCKETS + 1
-    grid = []
-    for c in f:
-        g = torch.zeros((NLIMBS, nslots), dtype=c.dtype, device=c.device)
-        g[:, scatter_idx] = c
-        grid.append(g[:, :-1])
-    # empty buckets scatter as all-zero, which the complete add would
-    # absorb; patch Y to Montgomery one => (0:1:0) identity
-    empty = fm.is_zero(grid[1]) & fm.is_zero(grid[2])
-    one = FQ.col("r", grid[1].device).to(grid[1].dtype)
-    grid[1] = torch.where(empty.unsqueeze(0), one, grid[1])
+    grid = _bucket_grid(f, scatter_idx, tw)
     return _gather(grid, leaf_idx)
 
 
@@ -458,9 +448,40 @@ def _horner_bits(planes, tw):
     return torch.stack(t)
 
 
-def _bucket_phase(f, scatter_idx, tw):
+def _bucket_grid(f, scatter_idx, tw):
+    """Scatter the finalized bucket entries into the (NLIMBS, tw *
+    NUM_BUCKETS) grid, empty buckets patched to the projective identity
+    (duplicates only at the dropped dump slot, see _grid_leaves)."""
+    nslots = tw * NUM_BUCKETS + 1
+    grid = []
+    for c in f:
+        g = torch.zeros((NLIMBS, nslots), dtype=c.dtype, device=c.device)
+        g[:, scatter_idx] = c
+        grid.append(g[:, :-1])
+    empty = fm.is_zero(grid[1]) & fm.is_zero(grid[2])
+    one = FQ.col("r", grid[1].device).to(grid[1].dtype)
+    grid[1] = torch.where(empty.unsqueeze(0), one, grid[1])
+    return grid
+
+
+def _bucket_phase_scan(f, scatter_idx, tw):
+    """Summation-by-parts bucket phase: two suffix scans over the bucket
+    axis (2 x 8 point-add launches of tw * 255 lanes)."""
+    from .msm_scan import _suffix_scan_buckets
+
+    grid = _bucket_grid(f, scatter_idx, tw)
+    tail = tuple(c.reshape(NLIMBS, tw, NUM_BUCKETS)[:, :, 1:] for c in grid)
+    totals = _suffix_scan_buckets(_suffix_scan_buckets(tail))
+    return torch.stack([c[:, :, 0] for c in totals])  # (3, NLIMBS, tw)
+
+
+def _bucket_phase(f, scatter_idx, tw, scan: bool = False):
     """Window totals sum_k k*B_k via the bit decomposition: a balanced
-    7-level tree per bit plane, then the Horner fold."""
+    7-level tree per bit plane, then the Horner fold. scan=True selects
+    the summation-by-parts suffix-scan pair instead (the reference's
+    H2V_BUCKET=scan)."""
+    if scan:
+        return _bucket_phase_scan(f, scatter_idx, tw)
     leaf_idx = torch.from_numpy(_bucket_leaf_idx(tw)).to(scatter_idx.device)
     leaves = _grid_leaves(f, scatter_idx, leaf_idx.to(I64), tw)
     while leaves[0].shape[1] > tw * WINDOW_BITS:

@@ -7,7 +7,8 @@ Pipeline:
 2. HOST, per proof: transcript replay on the native VM, with the isolation
    weights folded in, assembling the two accumulator MSMs as limb arrays.
 3. DEVICE: both MSMs as one host-planned addition forest
-   (ops/msm_forest.py) giving a (3, 16, 64) window-totals tensor.
+   (ops/msm_forest.py) or, with msm="scan", one host-sorted segmented
+   scan (ops/msm_scan.py), giving a (3, nlimbs, 64) window-totals tensor.
 4. HOST: exact combine of the window totals and one native pairing per
    batch; on failure, bisection over the replayed per-proof MSMs.
 
@@ -28,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops import msm_forest
+from ..ops import msm_forest, msm_scan
 from ..ops import hostcurve as hc
 from ..ops.constants import R
 from ..ops.decomp import dispatch_y_batch
@@ -82,8 +83,11 @@ class BatchVerifier:
     """Verify many proofs with one deferred pairing and device MSMs.
 
     device: None (CUDA, raising if absent) or an explicit torch device.
-    msm: "forest" (the device forest MSM) or "host" (the exact native host
-    MSM, for orchestration tests on the CPU; refused on a CUDA device).
+    msm: "forest" (the device forest MSM), "scan" (the device sort-and-scan
+    MSM) or "host" (the exact native host MSM, for orchestration tests on
+    the CPU; refused on a CUDA device).
+    limb_backend: the scan MSM's limb format, "u16" ((16, B) int32 limbs)
+    or "f8" ((32, B) float32 limbs); both give the same window totals.
     decomp: run the device sqrt pre-pass in verify_stream; None = on for a
     CUDA device, off otherwise."""
 
@@ -92,17 +96,19 @@ class BatchVerifier:
 
     def __init__(self, params, vk, multiopen="shplonk", hash_name="blake2b",
                  device=None, rng=None, strategy="accumulator",
-                 pairing="host", msm="forest", decomp=None, mesh=None):
+                 pairing="host", msm="forest", decomp=None, mesh=None,
+                 limb_backend=msm_scan.DEFAULT_BACKEND):
         if strategy not in ("accumulator", "single"):
             raise ValueError(f"unknown strategy {strategy!r} "
                              "(expected 'accumulator' or 'single')")
         if mesh is not None:
             raise NotImplementedError("mesh sharding: not yet ported")
-        if msm == "scan":
-            raise NotImplementedError("scan MSM: not yet ported")
-        if msm not in ("forest", "host"):
-            raise ValueError(f"unknown msm {msm!r} (expected 'forest' or "
-                             "'host')")
+        if msm not in ("forest", "scan", "host"):
+            raise ValueError(f"unknown msm {msm!r} (expected 'forest', "
+                             "'scan' or 'host')")
+        if limb_backend not in ("u16", "f8"):
+            raise ValueError(f"unknown limb_backend {limb_backend!r} "
+                             "(expected 'u16' or 'f8')")
         self.device = resolve_device(device)
         if msm == "host" and self.device.type == "cuda":
             raise ValueError("msm='host' runs the MSM on the CPU; it is for "
@@ -115,6 +121,7 @@ class BatchVerifier:
         self.hash_name = hash_name
         self.strategy = strategy
         self.msm = msm
+        self.limb_backend = limb_backend
         self.decomp = (self.device.type == "cuda") if decomp is None \
             else bool(decomp)
         self._rng = rng or (lambda: 1 + secrets.randbelow(R - 1))
@@ -276,6 +283,16 @@ class BatchVerifier:
                            if pairs else None)
                 off += size
             return ("host", out)
+        if self.msm == "scan":
+            idx_sorted, keys_sorted, levels = msm_scan.host_plan(s_np, sizes)
+            # device point-add lanes: the segmented scan's levels over all
+            # (entry, window) lanes + the two bucket suffix scans
+            self.point_adds_dispatched += msm_scan.scan_lanes(
+                idx_sorted.shape[0], len(sizes) * NUM_WINDOWS, levels)
+            arr = msm_scan.msm_window_totals_grouped(
+                x_np, y_np, idx_sorted, keys_sorted, len(sizes), levels,
+                self.device, backend=self.limb_backend)
+            return ("grouped", self._prefetch_d2h(arr))
         plan = msm_forest.host_plan(s_np, sizes)
         # device point adds: forest levels (plan) + per-window bit-plane
         # bucket reduction (7-level tree over 128 buckets x 8 bit planes +

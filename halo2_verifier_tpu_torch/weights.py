@@ -91,3 +91,22 @@ def load_k14_mac_fixture(fixture_path: str = FIXTURE_PATH,
         for i in range(proofs.shape[0])
     ]
     return params, vk, items
+
+
+def limbs16_to_limbs8(a):
+    """Re-limb a limbs-major array of 16-bit limbs, (..., 16, B) of any
+    integer type, into the 8-bit-limb format, (..., 32, B) float32: limb k
+    splits into limbs 2k (low byte) and 2k + 1. The values, Montgomery
+    form included, are unchanged (R = 2^256 in both formats)."""
+    a = np.asarray(a).astype(np.int64)
+    out = np.stack([a & 0xFF, (a >> 8) & 0xFF], axis=-2)
+    return out.reshape(*a.shape[:-2], 2 * a.shape[-2],
+                       a.shape[-1]).astype(np.float32)
+
+
+def limbs8_to_limbs16(a):
+    """Inverse of limbs16_to_limbs8: (..., 32, B) canonical 8-bit limbs
+    (any numeric type) -> (..., 16, B) int32 16-bit limbs."""
+    a = np.asarray(a).astype(np.int64)
+    pairs = a.reshape(*a.shape[:-2], a.shape[-2] // 2, 2, a.shape[-1])
+    return (pairs[..., 0, :] | (pairs[..., 1, :] << 8)).astype(np.int32)

@@ -13,8 +13,9 @@ import torch
 
 from halo2_verifier_tpu_torch import weights
 from halo2_verifier_tpu_torch.ops import curve, decomp, field as fm
+from halo2_verifier_tpu_torch.ops import field8 as f8
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
-from halo2_verifier_tpu_torch.ops import kernels, msm_forest
+from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
 from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, R
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
@@ -97,6 +98,136 @@ def test_point_add_kernel_matches_plain(cuda):
     assert aff[:256] == base and aff[512:] == [None] * 8
 
 
+def _to8(p):
+    """A (16, B) int32 point or element on the card, re-limbed to
+    (32, B) float32."""
+    if isinstance(p, tuple):
+        return tuple(_to8(c) for c in p)
+    return torch.from_numpy(
+        weights.limbs16_to_limbs8(p.cpu().numpy())).to(p.device)
+
+
+def test_point_double_kernel_matches_plain(cuda):
+    """K3 on random points, negatives and identities, then on its own
+    output so Z is general; 2P equals the add kernel's P + P as a point."""
+    base = _points(1500)
+    pool = base + [hc.g1_neg(p) for p in base[:500]] + [None] * 48
+    p = _projective(pool, cuda)
+    before = kernels.LAUNCHES["point_double"]
+    for _ in range(2):
+        got = curve.double(p)
+        want = curve.double_plain(p)
+        torch.cuda.synchronize()
+        for o, w in zip(got, want):
+            assert torch.equal(o, w)
+        p = got
+    assert kernels.LAUNCHES["point_double"] == before + 2
+    src = _projective(pool, cuda)
+    assert curve.to_affine_host(curve.double(src)) == curve.to_affine_host(
+        curve.add(src, src)) == [hc.g1_double(q) for q in pool]
+
+
+@pytest.mark.parametrize("spec", [fm.FQ, fm.FR], ids=["fq", "fr"])
+def test_mont_mul8_kernel_matches_plain(cuda, spec):
+    a16 = _limbs_t(_field_values(spec.modulus, 4096, 1), cuda)
+    b16 = _limbs_t(_field_values(spec.modulus, 4096, 2)[::-1], cuda)
+    a, b = f8.expand16_to8(a16), f8.expand16_to8(b16)
+    before = kernels.LAUNCHES["mont_mul8"]
+    got = f8.mont_mul(a, b, spec)
+    want = f8.mont_mul_body(a, b, spec)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert kernels.LAUNCHES["mont_mul8"] == before + 1
+    # the same product in the other format
+    assert torch.equal(got, f8.expand16_to8(fm.mont_mul(a16, b16, spec)))
+
+
+def test_point_add8_kernel_matches_plain(cuda):
+    base = _points(256)
+    pool = base + [hc.g1_neg(p) for p in base] + [None] * 8
+    src16 = _projective(pool, cuda)
+    src = _to8(src16)
+    n = len(pool)
+    g = torch.Generator().manual_seed(0)
+    iL = torch.randint(0, n, (4096,), generator=g, dtype=torch.int32)
+    iR = torch.randint(0, n, (4096,), generator=g, dtype=torch.int32)
+    iR[:256] = iL[:256]                                  # P + P
+    iL[256:512] = torch.arange(256, dtype=torch.int32)
+    iR[256:512] = torch.arange(256, 512, dtype=torch.int32)  # P + (-P)
+    iL[512:520] = 512 + torch.arange(8, dtype=torch.int32)   # identity
+    mask = torch.rand(4096, generator=g) < 0.8
+    iL, iR, mask = iL.to(cuda), iR.to(cuda), mask.to(cuda)
+    before = kernels.LAUNCHES["point_add8"]
+    p, p16 = src, src16
+    for _ in range(2):
+        got = curve.OPS8.masked_add(p, p, mask, iL, iR)
+        want = curve.OPS8.masked_add_plain(p, p, mask, iL, iR)
+        got16 = curve.masked_add(p16, p16, mask, iL, iR)
+        torch.cuda.synchronize()
+        for o, w, o16 in zip(got, want, got16):
+            assert o.dtype == torch.float32 and torch.equal(o, w)
+            assert torch.equal(o, f8.expand16_to8(o16))
+        p, p16 = got, got16
+    assert kernels.LAUNCHES["point_add8"] == before + 2
+
+
+def test_wrappers_refuse_cpu_tensors(cuda):
+    """A kernel wrapper never gives way to the plain version: CPU tensors
+    (or the other format's) raise."""
+    p16 = _projective(_points(4), CPU)
+    p8 = tuple(torch.from_numpy(weights.limbs16_to_limbs8(c.numpy()))
+               for c in p16)
+    with pytest.raises(ValueError):
+        kernels.point_double(p16)
+    with pytest.raises(ValueError):
+        kernels.mont_mul8(p8[0], p8[1], 0)
+    with pytest.raises(ValueError):
+        kernels.point_add8(p8, p8)
+    with pytest.raises(ValueError):
+        kernels.point_add8(tuple(c.to(cuda) for c in p16),
+                           tuple(c.to(cuda) for c in p16))
+
+
+@pytest.mark.parametrize("backend", ["u16", "f8"])
+def test_scan_on_card_equals_plain_and_host_msm(cuda, backend):
+    pts = _points(600)
+    rng = np.random.default_rng(4)
+    sc = [int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
+    sc[0], sc[1], pts[2], pts[4] = 0, R - 1, None, pts[3]
+    s_np = ints_to_limbs(sc)
+    x_np = ints_to_limbs([0 if p is None else p[0] for p in pts])
+    y_np = ints_to_limbs([0 if p is None else p[1] for p in pts])
+    idx, keys, levels = msm_scan.host_plan(s_np, [200, 400])
+    got = msm_scan.msm_window_totals_grouped(
+        x_np, y_np, idx, keys, 2, levels, cuda, backend=backend)
+    want = msm_scan.msm_window_totals_grouped(
+        x_np, y_np, idx, keys, 2, levels, CPU, backend=backend)
+    assert torch.equal(got.cpu(), want)
+    assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
+        hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
+    assert msm_scan.msm_host(sc[:50], pts[:50], cuda) == hc.g1_msm(
+        sc[:50], pts[:50])
+
+
+@pytest.mark.parametrize("backend", ["u16", "f8"])
+def test_k14_scan_stream_on_card(cuda, backend):
+    """The scan path through the entry point: a valid and a tampered small
+    batch of the main path's workload."""
+    params, vk, items = weights.load_k14_mac_fixture()
+    good = items[:16]
+    bad = list(good)
+    p, inst = bad[5]
+    bad[5] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
+    bv = BatchVerifier(params, vk, msm="scan", limb_backend=backend)
+    kernels.reset_launches()
+    res = list(bv.verify_stream([good, bad]))
+    assert res[0].ok
+    assert not res[1].ok and res[1].failed_indices == [5]
+    add, mul = (("point_add8", "mont_mul8") if backend == "f8"
+                else ("point_add", "mont_mul"))
+    assert kernels.LAUNCHES[add] > 0 and kernels.LAUNCHES[mul] > 0
+
+
 def test_sqrt_kernel_matches_k1_loop_and_plain(cuda):
     pts = _points(512)
     xs = _limbs_t([p[0] for p in pts] + _field_values(P, 512, 3), cuda)
@@ -137,4 +268,5 @@ def test_k14_stream_on_card(cuda):
     res = list(bv.verify_stream([good, bad]))
     assert res[0].ok
     assert not res[1].ok and res[1].failed_indices == [5]
-    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("mont_mul", "sqrt_principal", "point_add"))

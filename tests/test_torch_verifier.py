@@ -3,7 +3,8 @@ orchestrator.py) on the CPU, mirroring tests/test_orchestrator_advanced.py:
 verdicts and localized indices equal the JAX BatchVerifier's, one batch's
 window-totals array is bit-equal to the JAX orchestrator's under injected
 weights and a pinned pad, heterogeneous-vk batches, the sqrt pre-pass in
-the stream, and the device policy (no silent CPU fallback)."""
+the stream, the scan MSM path in both limb backends, and the device
+policy (no silent CPU fallback)."""
 
 import numpy as np
 import pytest
@@ -207,6 +208,56 @@ def test_k14_fixture_verifies_and_localizes():
     assert not res.ok and res.failed_indices == [1]
 
 
+def _scan_case(two_circuits):
+    """(vk, valid stream batch, one-proof tampered batch)."""
+    _jparams, _params, vm_proofs, _ = two_circuits
+    good = [(p, inst) for p, inst, _, _ in vm_proofs]
+    bad_instance = [[(v + 1) % R for v in vm_proofs[1][1][0]]]
+    return vm_proofs[0][3], good, [(vm_proofs[1][0], bad_instance)]
+
+
+@pytest.fixture(scope="module")
+def forest_verdicts(two_circuits):
+    """The verdicts of msm="forest" on the scan tests' batches, and its
+    count of dispatched MSM entries."""
+    vk, good, bad = _scan_case(two_circuits)
+    bv = BatchVerifier(two_circuits[1], vk, device="cpu")
+    res = [next(iter(bv.verify_stream([good], pad_to=128))), bv.verify(bad)]
+    return res, bv.msm_entries_dispatched
+
+
+@pytest.mark.parametrize("backend", ["u16", "f8"])
+def test_scan_msm_accepts_and_localizes(two_circuits, forest_verdicts,
+                                        backend):
+    """BatchVerifier(msm="scan") on the CPU (the plain versions) in each
+    limb backend: the valid batch is accepted through the stream, and a
+    tampered proof is localized, with the verdicts of msm="forest"."""
+    params = two_circuits[1]
+    vk, good, bad = _scan_case(two_circuits)
+    want, forest_entries = forest_verdicts
+    bv = BatchVerifier(params, vk, device="cpu", msm="scan",
+                       limb_backend=backend)
+    assert bv.msm == "scan" and bv.limb_backend == backend
+    got = [next(iter(bv.verify_stream([good], pad_to=128))), bv.verify(bad)]
+    assert [(r.ok, r.failed_indices) for r in got] == [(True, []),
+                                                       (False, [0])]
+    assert [(r.ok, r.failed_indices) for r in got] == [
+        (r.ok, r.failed_indices) for r in want]
+    assert "host_assemble" in bv.timings.totals  # the VM fast path
+    assert bv.point_adds_dispatched > 0
+    assert bv.msm_entries_dispatched == forest_entries
+
+
+def test_unknown_msm_and_backend_names_raise(two_circuits):
+    _jparams, params, vm_proofs, _ = two_circuits
+    vk = vm_proofs[0][3]
+    with pytest.raises(ValueError, match="msm"):
+        BatchVerifier(params, vk, device="cpu", msm="tree")
+    with pytest.raises(ValueError, match="limb_backend"):
+        BatchVerifier(params, vk, device="cpu", msm="scan",
+                      limb_backend="u32")
+
+
 def test_device_policy(two_circuits, monkeypatch):
     """Entry points default to CUDA and raise when it is absent; CPU runs
     only when asked for; unported paths raise."""
@@ -219,8 +270,6 @@ def test_device_policy(two_circuits, monkeypatch):
         BatchVerifier(params, vk, device="cuda")
     bv = BatchVerifier(params, vk, device="cpu")
     assert bv.device.type == "cpu" and not bv.decomp
-    with pytest.raises(NotImplementedError):
-        BatchVerifier(params, vk, device="cpu", msm="scan")
     with pytest.raises(NotImplementedError):
         BatchVerifier(params, vk, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
