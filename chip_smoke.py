@@ -4,18 +4,23 @@
 Phases, one output line each (JSON unless noted):
 1. the card: `nvidia-smi` name and power limit, torch's device name;
 2. build: every CUDA kernel from the sources in this checkout (nvcc, one
-   process per source, started together), with ptxas' registers, spills
-   and shared memory per kernel;
+   process per source, started together), with ptxas' registers and spill
+   bytes and the SASS that `cuobjdump -sass` shows (the static instruction
+   count and the classes that explain the bound) per kernel; a spill, or a
+   missing cuobjdump, fails the phase;
 3. parity on the card, bit for bit, at main-path widths: the Montgomery
    multiply (Fq and Fr, 16,384 and 2^19 lanes, random plus adversarial
    operands), the point add at the forest's level-0 width with fused
    gathers (random, identity, P+P and P+(-P) pairs, masked lanes, two
-   rounds so general projective inputs are covered), the fused square root
+   rounds so general projective inputs are covered, then off-curve
+   triples of the carry chains' edge values, masked and unmasked), the
+   fused square root
    against the loop of Montgomery-multiply launches and the plain version;
    at scan widths: the doubling at 2^19 lanes (random points, identities,
    outputs of an earlier add), the 8-bit-limb Montgomery multiply (Fq and
    Fr, 16,384 and 532,480 lanes) and the 8-bit-limb point add at 532,480
-   lanes on the point add's cases; across formats, 2P against P + P as
+   lanes on the point add's cases and edge triples; across formats, 2P
+   against P + P as
    affine points and every 8-bit-limb output against the re-limbed
    16-bit-limb kernel's; the 8-bit-limb outputs' range;
 4. one forest MSM and one scan MSM per limb backend of a main-path batch's
@@ -66,45 +71,59 @@ POINT_DOUBLE_WIDTH = 524288
 MONT_MUL8_WIDTHS = (16384, SCAN_LANES)
 SCAN_BATCHES = {"u16": 8, "f8": 4}
 
-# Bound model. INT32 rate: an H100 SM issues 64 32-bit integer operations
-# (add, multiply-add) per clock (NVIDIA's Hopper architecture white paper);
-# the rate is taken at the SM clock nvidia-smi reports as the maximum.
-# Bytes: 3.35 TB/s (H100 SXM data sheet). Operation counts are the least
-# the function needs on 32-bit words: a CIOS Montgomery product is 128
-# word products of 2 operations each with fused multiply-add carry chains
-# (PTX mad.lo.cc + madc.hi.cc), 8 reduction factors, and a conditional
-# subtract of 16 (an 8-word subtract chain, 8 selects); a modular add or
-# subtract is 24 (an 8-word carry chain, an 8-word chain for the modulus,
-# 8 selects); packing 16-bit limbs into words is 1 operation per limb each
-# way.
-INT32_LANES_PER_SM = 64
+# Bound model: the least time of an operation count is the longest of the
+# SM's pipes that must run it (NVIDIA CUDA C++ Programming Guide,
+# arithmetic instruction throughput for compute capability 9.0; Hopper
+# architecture white paper): per SM and clock, 64 32-bit integer
+# multiply-adds (FMA pipe), 64 other 32-bit integer operations (adds,
+# selects, byte permutes: ALU pipe), and 128 instructions issued in all
+# (4 schedulers x one 32-lane warp instruction), FP32 operations included;
+# at the SM clock nvidia-smi reports as the maximum. Bytes: 3.35 TB/s
+# (H100 SXM data sheet). Counts are (multiply-adds, ALU operations, FP32
+# operations), the least the function needs on 32-bit words: a CIOS
+# Montgomery product is 128 word products of 2 multiply-adds each with
+# fused carry chains (PTX mad.lo.cc + madc.hi.cc) and 8 reduction factors
+# (264), and a conditional subtract of 16 ALU operations (an 8-word
+# subtract chain, 8 selects); a modular add or subtract is 24 (an 8-word
+# carry chain, an 8-word chain for the modulus, 8 selects). Moving an
+# element between limbs and words: 16-bit limbs load with one byte_perm
+# per word (8) and store with a mask and a shift per word (16); 8-bit
+# limbs in float32 load with one byte_perm per word (8) and store with one
+# per byte (32), their float halves and bytes made by 32 FP32 operations
+# each way (csrc/field.cuh Limbs8).
+IMAD_PER_SM_CLK = 64
+ALU_PER_SM_CLK = 64
+ISSUE_PER_SM_CLK = 128
 HBM_BYTES_PER_S = 3.35e12
-OPS_MONT_MUL = 128 * 2 + 8 + 16
-OPS_ADD_SUB = 24
-OPS_PACK = 16
-# point add (RCB15 alg. 7): 12 products, 27 adds/subtracts, 6 loads and 3
-# stores of a 16-limb element
-OPS_POINT_ADD = 12 * OPS_MONT_MUL + 27 * OPS_ADD_SUB + 9 * OPS_PACK
+
+
+def ops(*terms):
+    """The sum of (count, (multiply-adds, ALU, FP32)) terms."""
+    return tuple(sum(n * v[i] for n, v in terms) for i in range(3))
+
+
+MONT_MUL = (128 * 2 + 8, 16, 0)
+ADD_SUB = (0, 24, 0)
+LOAD16, STORE16 = (0, 8, 0), (0, 16, 0)
+LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
 # square root: x*R^2, x^2, x^3, one product per set bit of (q+1)/4 and one
 # squaring per bit after its lowest, one product out of Montgomery form;
 # one add; one load, one store
 SQRT_EXP_BITS = 252
 SQRT_EXP_ONES = 109
-OPS_SQRT = ((3 + SQRT_EXP_ONES + SQRT_EXP_BITS - 1 + 1) * OPS_MONT_MUL
-            + OPS_ADD_SUB + 2 * OPS_PACK)
+OPS_SQRT = ops((3 + SQRT_EXP_ONES + SQRT_EXP_BITS - 1 + 1, MONT_MUL),
+               (1, ADD_SUB), (1, LOAD16), (1, STORE16))
 # doubling (RCB15 alg. 9): 8 products, 14 adds/subtracts, 3 loads and 3
 # stores
-OPS_POINT_DOUBLE = 8 * OPS_MONT_MUL + 14 * OPS_ADD_SUB + 6 * OPS_PACK
+OPS_POINT_DOUBLE = ops((8, MONT_MUL), (14, ADD_SUB), (3, LOAD16),
+                       (3, STORE16))
 LIMB_BYTES = 16 * 4  # one element, (16,) int32 limbs
-# The 8-bit-limb format: an element is (32,) float32 limbs; turning it into
-# words, or back, is counted as 1 operation per limb (a conversion fused
-# with its place in the word), the arithmetic on the words is the same.
-OPS_PACK8 = 32
-LIMB_BYTES8 = 32 * 4
-FORMAT = {  # kernel -> (bytes per element, packing operations per element)
-    "mont_mul": (LIMB_BYTES, OPS_PACK), "point_add": (LIMB_BYTES, OPS_PACK),
-    "mont_mul8": (LIMB_BYTES8, OPS_PACK8),
-    "point_add8": (LIMB_BYTES8, OPS_PACK8),
+LIMB_BYTES8 = 32 * 4  # one element, (32,) float32 limbs
+FORMAT = {  # kernel -> (bytes per element, ops to load one, ops to store)
+    "mont_mul": (LIMB_BYTES, LOAD16, STORE16),
+    "point_add": (LIMB_BYTES, LOAD16, STORE16),
+    "mont_mul8": (LIMB_BYTES8, LOAD8, STORE8),
+    "point_add8": (LIMB_BYTES8, LOAD8, STORE8),
 }
 
 
@@ -129,16 +148,20 @@ class Card:
         props = torch.cuda.get_device_properties(0)
         self.name = torch.cuda.get_device_name(0)
         self.sms = props.multi_processor_count
-        self.int32_ops_per_s = (self.sms * INT32_LANES_PER_SM
-                                * self.sm_mhz * 1e6)
+        self.sm_clk_per_s = self.sms * self.sm_mhz * 1e6
         self.power_limit = self.smi.split(",")[-1].strip()
 
     def tag(self):
         return {"card": self.name, "power_limit": self.power_limit}
 
-    def bound(self, nbytes, ops):
+    def bound(self, nbytes, counts):
+        """The least ms for nbytes and (multiply-adds, ALU, FP32) counts,
+        and which of the two bounds it."""
+        imad, alu, fp32 = counts
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / self.int32_ops_per_s * 1e3
+        t_ops = max(imad / IMAD_PER_SM_CLK, alu / ALU_PER_SM_CLK,
+                    (imad + alu + fp32) / ISSUE_PER_SM_CLK
+                    ) / self.sm_clk_per_s * 1e3
         return (max(t_bytes, t_ops),
                 "bytes" if t_bytes >= t_ops else "operations")
 
@@ -166,16 +189,16 @@ def max_abs_err(torch, got, want):
 # ---------------------------------------------------------------- phases
 
 def phase_build(kernels):
+    """Every kernel built, with ptxas' registers and spill bytes and its
+    SASS counts (kernels.build_report); fails on a spill."""
     t0 = time.time()
-    log = kernels.build()
-    report = {}
-    for src, text in log.items():
-        for line in text.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                report.setdefault(src, []).append(line.strip())
+    report = kernels.build_report()
+    spilled = [f"{src} {k}" for src, ks in report.items()
+               for k, r in ks.items() if r.get("spill_bytes") != 0]
+    if spilled:
+        raise AssertionError(f"build: spills in {spilled}")
     return {"phase": "build", "seconds": round(time.time() - t0, 3),
-            "ptxas": report}
+            "kernels": report}
 
 
 def random_field(np, rng, modulus, n):
@@ -187,16 +210,10 @@ def random_field(np, rng, modulus, n):
 
 
 def phase_k1(torch, np, fm, ints_to_limbs, dev):
-    from halo2_verifier_tpu_torch.ops.constants import P
+    from halo2_verifier_tpu_torch.ops.constants import FOLD_EDGE, P
 
     adversarial = [0, 1, 2, (1 << 16) - 1, (1 << 255) % P, P - 1, P - 2,
                    (P + 1) // 2, 0xFFFF_FFFF_FFFF_FFFF]
-    fold_edge = [  # two-pass fold of m at its edge (tests/test_torch_field)
-        (0x72326b6ab3bab60ef5716a3403b2e8ec463cb5cf3197882005dd3a2e3f08dae,
-         0x1130a235f9489dda1703195ea5270f386b2e092699f440143a78c39876fcf955),
-        (0x22ab954d281c53a985687f21f81c15dd9f8dfdcce53e053a8898e5717efbdbdf,
-         0x4dd03bb06c69ba1cc78706a5ccad2a9456aa692f7ba47bb15fb5389df0af259),
-    ]
     rng = np.random.default_rng(1)
     worst = 0
     checked = []
@@ -207,9 +224,9 @@ def phase_k1(torch, np, fm, ints_to_limbs, dev):
             adv = [v % spec.modulus for v in adversarial]
             a[:len(adv)] = ints_to_limbs(adv)
             b[len(adv):2 * len(adv)] = ints_to_limbs(adv)
-            if spec is fm.FQ:
-                a[-2:] = ints_to_limbs([x for x, _ in fold_edge])
-                b[-2:] = ints_to_limbs([y for _, y in fold_edge])
+            if spec is fm.FQ:  # the fold of m at its edge
+                a[-3:] = ints_to_limbs([x for x, _ in FOLD_EDGE])
+                b[-3:] = ints_to_limbs([y for _, y in FOLD_EDGE])
             A = torch.from_numpy(a.T.astype(np.int32).copy()).to(dev)
             B = torch.from_numpy(b.T.astype(np.int32).copy()).to(dev)
             got = fm.mont_mul(A, B, spec)
@@ -275,8 +292,31 @@ def add_case(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
     return f, iL.to(dev), iR.to(dev), mask.to(dev), pool
 
 
+def edge_case(torch, np, fm, ints_to_limbs, dev, width):
+    """Off-curve triples of the carry chains' edge values (constants.
+    fq_edge_triples, every value in every coordinate), each once masked
+    and once not, in the first lanes of `width` lanes of random canonical
+    triples: (p, q, mask, edge lanes)."""
+    from halo2_verifier_tpu_torch.ops.constants import fq_edge_triples
+
+    triples = fq_edge_triples(range(15))
+    edge = 2 * len(triples)
+    rng = np.random.default_rng(6)
+    coords = []
+    for c in range(6):
+        limbs = random_field(np, rng, fm.FQ.modulus, width)
+        limbs[:edge] = ints_to_limbs([t[c] for t in triples] * 2)
+        coords.append(torch.from_numpy(
+            limbs.T.astype(np.int32).copy()).to(dev))
+    mask = torch.from_numpy(rng.random(width) < 0.9)
+    mask[:len(triples)] = True
+    mask[len(triples):edge] = False
+    return tuple(coords[:3]), tuple(coords[3:]), mask.to(dev), edge
+
+
 def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
-    """The point add at the forest's level-0 width."""
+    """The point add at the forest's level-0 width: the point add's
+    cases with fused gathers, then the edge triples."""
     f, iL, iR, mask, _pool = add_case(torch, np, hc, fm, curve,
                                       ints_to_limbs, dev, width)
     worst = 0
@@ -286,8 +326,12 @@ def phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
         want = curve.masked_add_plain(p, p, mask, iL, iR)
         worst = max(worst, max_abs_err(torch, got, want))
         p = got
+    p, q, emask, edge = edge_case(torch, np, fm, ints_to_limbs, dev, width)
+    err_edge = max_abs_err(torch, curve.masked_add(p, q, emask),
+                           curve.masked_add_plain(p, q, emask))
     return {"phase": "parity_point_add", "tolerance": 0, "lanes": width,
-            "max_abs_err": worst}
+            "max_abs_err": max(worst, err_edge),
+            "max_abs_err_edge_triples": err_edge, "edge_lanes": edge}
 
 
 def check_limbs8(torch, name, *ts):
@@ -357,9 +401,9 @@ def phase_k4(torch, np, fm, f8, ints_to_limbs, dev):
 
 def phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev, width):
     """The 8-bit-limb point add at the scan's width on the point add's
-    cases, fused gathers and mask: against the plain float32 version, and
-    against the 16-bit-limb kernel's re-limbed output on the same
-    points."""
+    cases, fused gathers and mask, then on the edge triples: against the
+    plain float32 version, and against the 16-bit-limb kernel's re-limbed
+    output on the same points."""
     f16, iL, iR, mask, _pool = add_case(torch, np, hc, fm, curve,
                                         ints_to_limbs, dev, width)
     ops8 = curve.OPS8
@@ -375,10 +419,20 @@ def phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev, width):
         worst_cross = max(worst_cross, max_abs_err(
             torch, got, tuple(f8.expand16_to8(c) for c in got16)))
         p8, p16 = got, got16
+    p16, q16, emask, edge = edge_case(torch, np, fm, ints_to_limbs, dev,
+                                      width)
+    p8, q8 = (tuple(f8.expand16_to8(c) for c in x) for x in (p16, q16))
+    got = ops8.masked_add(p8, q8, emask)
+    check_limbs8(torch, "point_add8", *got)
+    err_edge = max(
+        max_abs_err(torch, got, ops8.masked_add_plain(p8, q8, emask)),
+        max_abs_err(torch, got, tuple(
+            f8.expand16_to8(c) for c in curve.masked_add(p16, q16, emask))))
     return {"phase": "parity_point_add8", "tolerance": 0, "lanes": width,
-            "max_abs_err": max(worst, worst_cross),
+            "max_abs_err": max(worst, worst_cross, err_edge),
             "max_abs_err_vs_plain": worst,
-            "max_abs_err_vs_relimbed_u16_kernel": worst_cross}
+            "max_abs_err_vs_relimbed_u16_kernel": worst_cross,
+            "max_abs_err_edge_triples": err_edge, "edge_lanes": edge}
 
 
 def phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev):
@@ -562,31 +616,31 @@ def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
 # name, source, TPU kernel it replaces, the path whose run gives its row
 KERNELS = (
     ("mont_mul", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
-     "halo2_verifier_tpu/ops/lmfield.py:431", "main_path"),
+     "halo2_verifier_tpu/ops/lmfield.py:440", "main_path"),
     ("point_add", "halo2_verifier_tpu_torch/csrc/point_add.cu",
-     "halo2_verifier_tpu/ops/lmcurve.py:53", "main_path"),
+     "halo2_verifier_tpu/ops/lmcurve.py:73", "main_path"),
     ("sqrt_principal", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
-     "halo2_verifier_tpu/ops/lmfield.py:431 (via "
+     "halo2_verifier_tpu/ops/lmfield.py:440 (via "
      "halo2_verifier_tpu/ops/decomp_jax.py:54)", "main_path"),
     ("point_double", "halo2_verifier_tpu_torch/csrc/point_double.cu",
-     "halo2_verifier_tpu/ops/lmcurve.py:264", "double_path"),
+     "halo2_verifier_tpu/ops/lmcurve.py:273", "double_path"),
     ("mont_mul8", "halo2_verifier_tpu_torch/csrc/mont_mul8.cu",
-     "halo2_verifier_tpu/ops/lmfield8.py:247", "scan_path_f8"),
+     "halo2_verifier_tpu/ops/lmfield8.py:257", "scan_path_f8"),
     ("point_add8", "halo2_verifier_tpu_torch/csrc/point_add8.cu",
-     "halo2_verifier_tpu/ops/lmcurve.py:53 (instance OPS8, :213)",
+     "halo2_verifier_tpu/ops/lmcurve.py:73 (instance OPS8, :213)",
      "scan_path_f8"),
 )
 
 
 def kernel_case(name, args, curve, fm, f8, decomp):
-    """(plain version, bytes, operations) of one recorded launch: each
-    input read once and each output written once; operations as this
-    launch's data needs them (a masked-out lane of the point add only
-    copies its point)."""
+    """(plain version, bytes, (multiply-adds, ALU, FP32) operations) of
+    one recorded launch: each input read once and each output written
+    once; operations as this launch's data needs them (a masked-out lane
+    of the point add only copies its point)."""
     if name in ("mont_mul", "mont_mul8"):
         a, bb, field_id = args
         spec = fm.FQ if field_id == 0 else fm.FR
-        elem, pack = FORMAT[name]
+        elem, load, store = FORMAT[name]
         b = a.shape[1]
         if name == "mont_mul":
             def plain():
@@ -594,11 +648,12 @@ def kernel_case(name, args, curve, fm, f8, decomp):
         else:
             def plain():
                 return f8.mont_mul_body(a, bb, spec)
-        return plain, 3 * elem * b, (OPS_MONT_MUL + 3 * pack) * b
+        return plain, 3 * elem * b, ops((b, MONT_MUL), (2 * b, load),
+                                        (b, store))
     if name in ("point_add", "point_add8"):
         p, q, mask, iL, iR = args  # as PointOps.masked_add calls it
         ops_ = curve.OPS16 if name == "point_add" else curve.OPS8
-        elem, pack = FORMAT[name]
+        elem, load, store = FORMAT[name]
 
         def plain():
             return ops_.masked_add_plain(p, q, mask, iL, iR)
@@ -612,17 +667,20 @@ def kernel_case(name, args, curve, fm, f8, decomp):
                   + (b if mask is not None else 0)
                   + 3 * elem * b)
         active = b if mask is None else int(mask.sum())
-        add_ops = (12 * OPS_MONT_MUL + 27 * OPS_ADD_SUB + 9 * pack)
-        return plain, nbytes, add_ops * active + 6 * pack * (b - active)
+        # RCB15 alg. 7: 12 products, 27 adds/subtracts, 6 loads and 3
+        # stores; a masked-out lane loads and stores its point
+        return plain, nbytes, ops((12 * active, MONT_MUL),
+                                  (27 * active, ADD_SUB), (3 * active, load),
+                                  (3 * b, load), (3 * b, store))
     if name == "point_double":
         (p,) = args
         b = p[0].shape[1]
         return (lambda: curve.double_plain(p), 2 * 3 * LIMB_BYTES * b,
-                OPS_POINT_DOUBLE * b)
+                ops((b, OPS_POINT_DOUBLE)))
     (xs,) = args
     b = xs.shape[1]
     return (lambda: decomp.y_principal_plain(xs), 2 * LIMB_BYTES * b,
-            OPS_SQRT * b)
+            ops((b, OPS_SQRT)))
 
 
 def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
@@ -631,12 +689,12 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
     inputs."""
     b, args = record["widest"][name]
     fn = getattr(kernels, name)
-    plain, nbytes, ops = kernel_case(name, args, curve, fm, f8, decomp)
+    plain, nbytes, counts = kernel_case(name, args, curve, fm, f8, decomp)
     err = max_abs_err(torch, fn(*args), plain())
     ms = time_ms(torch, lambda: fn(*args), reps=20)
     plain_ms = time_ms(torch, plain,
                        reps=1 if name == "sqrt_principal" else 3)
-    bound_ms, bound_by = card.bound(nbytes, ops)
+    bound_ms, bound_by = card.bound(nbytes, counts)
     n = record["batches"]
     return {
         "launches": record["launches"][name],
@@ -644,7 +702,8 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
         "lanes": b, "max_abs_err": err, "ms": round(ms, 4),
         "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
         "bound_by": bound_by, "library_ms": None,
-        "bytes": nbytes, "operations": ops,
+        "bytes": nbytes, "operations": sum(counts),
+        "operations_by_pipe": dict(zip(("imad", "alu", "fp32"), counts)),
         "lanes_per_batch": round(record["lanes"][name] / n),
     }
 

@@ -12,19 +12,22 @@
 // (field.cuh), so nothing but the operands and the result touches memory.
 //
 // Bound on this card: one product moves 3 x 64 B per lane (2 in, 1 out)
-// and needs at least 280 32-bit integer operations with fused multiply-add
-// carry chains (PTX mad.lo.cc/madc.hi.cc: 2 per word product, 128 word
-// products; 8 for the reduction factors; 16 for the final subtract), 328
-// with the limb packing: ~1.7 op/B, under the card's balance point of ~5
-// op/B (132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T op/s over 3.35 TB/s),
-// so alone K1 is bound by bytes, and at the main path's width (17,408
-// lanes for point conversion) by its launch. Inside the point add and the
+// and needs at least 264 32-bit integer multiply-adds with fused carry
+// chains (PTX mad.lo.cc/madc.hi.cc: 2 per word product, 128 word
+// products; 8 for the reduction factors), which run on the FMA pipe, and
+// 48 ALU operations (the final subtract, the limb packing): ~1.4
+// multiply-adds per byte, under the card's balance point of ~5 (132 SMs x
+// 64 multiply-adds per clock x 1.98 GHz = 16.7 T/s over 3.35 TB/s), so
+// alone K1 is bound by bytes, and at the main path's width (17,408 lanes
+// for point conversion) by its launch. Inside the point add and the
 // square root, where operands stay in registers, the same product is bound
 // by integer throughput; the 32-bit-word CIOS is the answer there: it
 // needs several times fewer operations than the 16-bit-limb convolutions
-// the TPU's 32-bit lanes needed. Written in C++ with 64-bit
-// intermediates, it issues more than that least count; carry chains in PTX
-// are later work.
+// the TPU's 32-bit lanes needed. The carry chains are PTX (field.cuh);
+// ptxas turns each madc into an IMAD and an IADD3.X on sm_90, so a
+// product issues about 580 SASS instructions, twice the count above. The
+// square root is one serial chain of products per lane at 15,360 lanes
+// (60 blocks of 256 threads): bound by that chain's latency, not by issue.
 //
 // The fused square root runs the whole exponentiation per lane in
 // registers: x -> Montgomery, x^3 + 3, then (x^3+3)^((q+1)/4) by the
@@ -56,6 +59,7 @@ static __constant__ uint32_t SQRT_EXP[8] = {
 namespace {
 
 using h2v::Fe;
+using h2v::Limbs16;
 
 constexpr int kThreads = 256;
 constexpr int kSqrtBits = 252;  // bit length of (q + 1) / 4
@@ -70,20 +74,20 @@ __device__ __forceinline__ Fe from_const(const uint32_t* c) {
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ out, long long width) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                int32_t* __restrict__ out, uint32_t width) {
+    uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= width) return;
-    Fe x = h2v::load_fe(a, width, i);
-    Fe y = h2v::load_fe(b, width, i);
-    h2v::store_fe(out, width, i, h2v::mont_mul<F>(x, y));
+    Fe x = Limbs16::load(a + i, width);
+    Fe y = Limbs16::load(b + i, width);
+    Limbs16::store(out + i, width, h2v::mont_mul<F>(x, y));
 }
 
 __global__ void __launch_bounds__(kThreads)
 sqrt_principal_kernel(const int32_t* __restrict__ xs,
-                      int32_t* __restrict__ ys, long long width) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                      int32_t* __restrict__ ys, uint32_t width) {
+    uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= width) return;
-    Fe x = h2v::load_fe(xs, width, i);
+    Fe x = Limbs16::load(xs + i, width);
     Fe xm = h2v::mont_mul<0>(x, from_const(R2_FQ));
     Fe x3 = h2v::mont_mul<0>(h2v::mont_mul<0>(xm, xm), xm);
     Fe base = h2v::add<0>(x3, from_const(B_FQ));
@@ -94,7 +98,7 @@ sqrt_principal_kernel(const int32_t* __restrict__ xs,
         if (k < kSqrtBits - 1) base = h2v::mont_mul<0>(base, base);
     }
     Fe one_plain = {{1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
-    h2v::store_fe(ys, width, i, h2v::mont_mul<0>(result, one_plain));
+    Limbs16::store(ys + i, width, h2v::mont_mul<0>(result, one_plain));
 }
 
 unsigned int blocks_for(long long width) {
@@ -109,16 +113,17 @@ extern "C" int h2v_mont_mul(const int32_t* a, const int32_t* b,
     cudaStream_t s = (cudaStream_t)stream;
     if (field == 0)
         mont_mul_kernel<0><<<blocks_for(width), kThreads, 0, s>>>(
-            a, b, out, width);
+            a, b, out, (uint32_t)width);
     else
         mont_mul_kernel<1><<<blocks_for(width), kThreads, 0, s>>>(
-            a, b, out, width);
+            a, b, out, (uint32_t)width);
     return (int)cudaGetLastError();
 }
 
 extern "C" int h2v_sqrt_principal(const int32_t* xs, int32_t* ys,
                                   long long width, void* stream) {
     sqrt_principal_kernel<<<blocks_for(width), kThreads, 0,
-                            (cudaStream_t)stream>>>(xs, ys, width);
+                            (cudaStream_t)stream>>>(xs, ys,
+                                                    (uint32_t)width);
     return (int)cudaGetLastError();
 }

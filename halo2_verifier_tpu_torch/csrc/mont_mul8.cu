@@ -18,10 +18,12 @@
 // runs), and unpacks the canonical result into 32 floats. Montgomery R is
 // 2^256 in both formats, so the result is the reference's limb for limb.
 //
-// Bound on this card: a lane moves 3 x 128 B (2 in, 1 out) for about 380
-// 32-bit integer operations (280 for the product, 96 conversions and
-// packing steps): ~1 op/B, under the card's ~5 op/B balance point, so the
-// kernel is bound by bytes, twice those of the 16-bit format.
+// Bound on this card: a lane moves 3 x 128 B (2 in, 1 out) for 264
+// integer multiply-adds and 64 ALU operations (16 for the product; 8 byte
+// permutes per load and 32 per store, the float halves and bytes made by
+// 96 FP32 operations, field.cuh Limbs8): ~0.7 multiply-adds per byte,
+// under the card's balance point of ~5, so the kernel is bound by bytes,
+// twice those of the 16-bit format.
 
 #include <cuda_runtime.h>
 
@@ -34,12 +36,12 @@ constexpr int kThreads = 256;
 template <int F>
 __global__ void __launch_bounds__(kThreads)
 mont_mul8_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ out, long long width) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                 float* __restrict__ out, uint32_t width) {
+    uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= width) return;
-    h2v::Fe x = h2v::load_fe8(a, width, i);
-    h2v::Fe y = h2v::load_fe8(b, width, i);
-    h2v::store_fe8(out, width, i, h2v::mont_mul<F>(x, y));
+    h2v::Fe x = h2v::Limbs8::load(a + i, width);
+    h2v::Fe y = h2v::Limbs8::load(b + i, width);
+    h2v::Limbs8::store(out + i, width, h2v::mont_mul<F>(x, y));
 }
 
 }  // namespace
@@ -49,8 +51,10 @@ extern "C" int h2v_mont_mul8(const float* a, const float* b, float* out,
     cudaStream_t s = (cudaStream_t)stream;
     unsigned int blocks = (unsigned int)((width + kThreads - 1) / kThreads);
     if (field == 0)
-        mont_mul8_kernel<0><<<blocks, kThreads, 0, s>>>(a, b, out, width);
+        mont_mul8_kernel<0><<<blocks, kThreads, 0, s>>>(a, b, out,
+                                                         (uint32_t)width);
     else
-        mont_mul8_kernel<1><<<blocks, kThreads, 0, s>>>(a, b, out, width);
+        mont_mul8_kernel<1><<<blocks, kThreads, 0, s>>>(a, b, out,
+                                                         (uint32_t)width);
     return (int)cudaGetLastError();
 }

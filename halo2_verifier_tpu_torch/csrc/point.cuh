@@ -17,7 +17,29 @@
 
 namespace h2v {
 
-constexpr int kPointThreads = 128;
+// The masked add's body and launch shape for each limb format, chosen on
+// the card by sweep_point_add.py (table in PERF.md): the body, unrolled
+// or rolled into loops over the coordinates (add_rolled), and block size
+// x minimum blocks per SM, which caps registers at 65,536 / (threads x
+// blocks). On an NVIDIA H100 80GB HBM3 at 700.00 W: the 16-bit format
+// runs fastest unrolled, at 256 x 2 (128 registers, 16 warps per SM);
+// the 8-bit format's unrolled code (9k SASS instructions, 143 KB) runs at
+// 0.60 ms on the scan's widest launch and its rolled code (4.4k) at 0.35,
+// best with no register cap (191 registers, 8 warps per SM).
+template <class L>
+struct AddShape;
+template <>
+struct AddShape<Limbs16> {
+    static constexpr int kThreads = 256;
+    static constexpr int kMinBlocks = 2;
+    static constexpr bool kRolled = false;
+};
+template <>
+struct AddShape<Limbs8> {
+    static constexpr int kThreads = 256;
+    static constexpr int kMinBlocks = 1;
+    static constexpr bool kRolled = true;
+};
 
 __device__ __forceinline__ Fe fq_mul(const Fe& a, const Fe& b) {
     return mont_mul<0>(a, b);
@@ -37,41 +59,14 @@ __device__ __forceinline__ Fe fq_mul_b3(const Fe& x) {
     return fq_add(d3, x);
 }
 
-// out[i] = mask[i] ? P[i] + Q[i] : P[i], P[i] = p[:, il[i]] (or p[:, i]),
-// Q[i] = q[:, ir[i]] (or q[:, i]); one thread per output lane, every
-// intermediate in registers. A masked-out lane never reads Q. L is the
-// limb format (Limbs16 or Limbs8).
+// RCB15 algorithm 7 on (X1:Y1:Z1) + (X2:Y2:Z2), stored to o[0], o[1],
+// o[2] (rows w apart), in the reference's operation order.
 template <class L>
-__global__ void __launch_bounds__(kPointThreads)
-point_add_kernel(const typename L::T* __restrict__ px,
-                 const typename L::T* __restrict__ py,
-                 const typename L::T* __restrict__ pz, long long wp,
-                 const typename L::T* __restrict__ qx,
-                 const typename L::T* __restrict__ qy,
-                 const typename L::T* __restrict__ qz, long long wq,
-                 const int32_t* __restrict__ il,
-                 const int32_t* __restrict__ ir,
-                 const uint8_t* __restrict__ mask,
-                 typename L::T* __restrict__ ox,
-                 typename L::T* __restrict__ oy,
-                 typename L::T* __restrict__ oz, long long width) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= width) return;
-    long long l = il ? (long long)il[i] : i;
-    Fe X1 = L::load(px, wp, l);
-    Fe Y1 = L::load(py, wp, l);
-    Fe Z1 = L::load(pz, wp, l);
-    if (mask && !mask[i]) {
-        L::store(ox, width, i, X1);
-        L::store(oy, width, i, Y1);
-        L::store(oz, width, i, Z1);
-        return;
-    }
-    long long r = ir ? (long long)ir[i] : i;
-    Fe X2 = L::load(qx, wq, r);
-    Fe Y2 = L::load(qy, wq, r);
-    Fe Z2 = L::load(qz, wq, r);
-
+__device__ __forceinline__ void add_unrolled(const Fe& X1, const Fe& Y1,
+                                             const Fe& Z1, const Fe& X2,
+                                             const Fe& Y2, const Fe& Z2,
+                                             typename L::T* const (&o)[3],
+                                             uint32_t w) {
     Fe t0 = fq_mul(X1, X2);
     Fe t1 = fq_mul(Y1, Y2);
     Fe t2 = fq_mul(Z1, Z2);
@@ -83,9 +78,114 @@ point_add_kernel(const typename L::T* __restrict__ px,
     Fe z3 = fq_add(t1, t2b);
     Fe t1m = fq_sub(t1, t2b);
     Fe y3b = fq_mul_b3(y3);
-    L::store(ox, width, i, fq_sub(fq_mul(t3, t1m), fq_mul(t4, y3b)));
-    L::store(oy, width, i, fq_add(fq_mul(y3b, x3), fq_mul(t1m, z3)));
-    L::store(oz, width, i, fq_add(fq_mul(z3, t4), fq_mul(x3, t3)));
+    L::store(o[0], w, fq_sub(fq_mul(t3, t1m), fq_mul(t4, y3b)));
+    L::store(o[1], w, fq_add(fq_mul(y3b, x3), fq_mul(t1m, z3)));
+    L::store(o[2], w, fq_add(fq_mul(z3, t4), fq_mul(x3, t3)));
+}
+
+// The same values with 4 inlined Montgomery products instead of 12: the
+// formulas are cyclic in the coordinates, so two loops over rotating
+// triples compute them (rotation is register moves). Operands swap sides
+// in two products and one sum; both commute bit for bit on canonical
+// residues.
+template <class L>
+__device__ __forceinline__ void add_rolled(Fe u0, Fe u1, Fe u2, Fe v0,
+                                           Fe v1, Fe v2,
+                                           typename L::T* const (&o)[3],
+                                           uint32_t w) {
+    // iteration k: t_k = u_k v_k, s_k = (u_k + u_{k+1})(v_k + v_{k+1}),
+    // shifted through (T0, T1, T2) and (S0, S1, S2)
+    Fe T0 = {}, T1 = {}, T2 = {}, S0 = {}, S1 = {}, S2 = {};
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+        Fe t = fq_mul(u0, v0);
+        Fe sk = fq_mul(fq_add(u0, u1), fq_add(v0, v1));
+        Fe x = u0;
+        u0 = u1;
+        u1 = u2;
+        u2 = x;
+        x = v0;
+        v0 = v1;
+        v1 = v2;
+        v2 = x;
+        T0 = T1;
+        T1 = T2;
+        T2 = t;
+        S0 = S1;
+        S1 = S2;
+        S2 = sk;
+    }
+    Fe t3 = fq_sub(S0, fq_add(T0, T1));
+    Fe t4 = fq_sub(S1, fq_add(T1, T2));
+    Fe y3 = fq_sub(S2, fq_add(T0, T2));
+    Fe t2b = fq_mul_b3(T2);
+    Fe x3 = fq_add(fq_add(T0, T0), T0);
+    Fe z3 = fq_add(T1, t2b);
+    Fe t1m = fq_sub(T1, t2b);
+    Fe y3b = fq_mul_b3(y3);
+    // out_k = a_k b_k -/+ b_{k+2} a_{k+1} (indices mod 3) for a = (t3, y3b,
+    // z3), b = (t1m, x3, t4): X3 = t3 t1m - t4 y3b, Y3 = y3b x3 + t1m z3,
+    // Z3 = z3 t4 + x3 t3
+    Fe a0 = t3, a1 = y3b, a2 = z3, b0 = t1m, b1 = x3, b2 = t4;
+#pragma unroll 1
+    for (int k = 0; k < 3; ++k) {
+        Fe p1 = fq_mul(a0, b0);
+        Fe p2 = fq_mul(b2, a1);
+        // a select, not o[k]: a dynamic index would put o in local memory
+        L::store(k == 0 ? o[0] : k == 1 ? o[1] : o[2], w,
+                 k == 0 ? fq_sub(p1, p2) : fq_add(p1, p2));
+        Fe x = a0;
+        a0 = a1;
+        a1 = a2;
+        a2 = x;
+        x = b0;
+        b0 = b1;
+        b1 = b2;
+        b2 = x;
+    }
+}
+
+// out[i] = mask[i] ? P[i] + Q[i] : P[i], P[i] = p[:, il[i]] (or p[:, i]),
+// Q[i] = q[:, ir[i]] (or q[:, i]); one thread per output lane, every
+// intermediate in registers. A masked-out lane never reads Q. L is the
+// limb format (Limbs16 or Limbs8). Widths and indices are 32-bit: every
+// tensor has fewer than 2^31 elements (ops/kernels.py checks).
+template <class L>
+__global__ void __launch_bounds__(AddShape<L>::kThreads,
+                                  AddShape<L>::kMinBlocks)
+point_add_kernel(const typename L::T* __restrict__ px,
+                 const typename L::T* __restrict__ py,
+                 const typename L::T* __restrict__ pz, uint32_t wp,
+                 const typename L::T* __restrict__ qx,
+                 const typename L::T* __restrict__ qy,
+                 const typename L::T* __restrict__ qz, uint32_t wq,
+                 const int32_t* __restrict__ il,
+                 const int32_t* __restrict__ ir,
+                 const uint8_t* __restrict__ mask,
+                 typename L::T* __restrict__ ox,
+                 typename L::T* __restrict__ oy,
+                 typename L::T* __restrict__ oz, uint32_t width) {
+    uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width) return;
+    uint32_t l = il ? (uint32_t)il[i] : i;
+    Fe X1 = L::load(px + l, wp);
+    Fe Y1 = L::load(py + l, wp);
+    Fe Z1 = L::load(pz + l, wp);
+    typename L::T* const o[3] = {ox + i, oy + i, oz + i};
+    if (mask && !mask[i]) {
+        L::store(o[0], width, X1);
+        L::store(o[1], width, Y1);
+        L::store(o[2], width, Z1);
+        return;
+    }
+    uint32_t r = ir ? (uint32_t)ir[i] : i;
+    Fe X2 = L::load(qx + r, wq);
+    Fe Y2 = L::load(qy + r, wq);
+    Fe Z2 = L::load(qz + r, wq);
+    if constexpr (AddShape<L>::kRolled)
+        add_rolled<L>(X1, Y1, Z1, X2, Y2, Z2, o, width);
+    else
+        add_unrolled<L>(X1, Y1, Z1, X2, Y2, Z2, o, width);
 }
 
 template <class L>
@@ -97,10 +197,11 @@ int launch_point_add(const typename L::T* px, const typename L::T* py,
                      const uint8_t* mask, typename L::T* ox,
                      typename L::T* oy, typename L::T* oz, long long width,
                      void* stream) {
-    unsigned int blocks =
-        (unsigned int)((width + kPointThreads - 1) / kPointThreads);
-    point_add_kernel<L><<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
-        px, py, pz, wp, qx, qy, qz, wq, il, ir, mask, ox, oy, oz, width);
+    constexpr int threads = AddShape<L>::kThreads;
+    unsigned int blocks = (unsigned int)((width + threads - 1) / threads);
+    point_add_kernel<L><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        px, py, pz, (uint32_t)wp, qx, qy, qz, (uint32_t)wq, il, ir, mask, ox,
+        oy, oz, (uint32_t)width);
     return (int)cudaGetLastError();
 }
 

@@ -18,16 +18,25 @@
 // 32-bit integer multiplies; this card multiplies integers natively, so a
 // lane packs its 32 float limbs into eight 32-bit words as it loads them,
 // runs the same word-serial Montgomery products as every other kernel of
-// the package, and unpacks on the store. The format costs conversions and
-// bytes, never another arithmetic.
+// the package, and unpacks on the store, with exact float-bit identities
+// on the FP32 pipe and no F2I/I2F (field.cuh Limbs8). The format costs
+// bytes and byte permutes, never another arithmetic. Its body is rolled
+// (point.cuh add_rolled): unrolled, its 9k SASS instructions (143 KB)
+// outgrow the instruction cache, and the add took 0.60 ms on the scan's
+// widest launch against 0.35 rolled (sweep_point_add.py, NVIDIA H100 80GB
+// HBM3, 700.00 W).
 //
 // Bound on this card: the least operation count is that of the 16-bit
-// add with 32 conversions per element instead of 16 (4,296 per lane), and
-// the bytes are twice the 16-bit format's, so the add sits at the card's
-// ~5 op/B balance point. A scan level, which reads P and Q from one
-// tensor, moves 773 B per lane (5.6 op/B: bound by operations, by a
-// little); an add of two tensors moves 1,157 B (3.7 op/B: bound by
-// bytes); masked lanes, which only copy, push either towards bytes.
+// add (3,168 multiply-adds per adding lane) with 32 byte permutes per
+// stored element instead of 16 and 32 FP32 operations per element moved,
+// and the bytes are twice the 16-bit format's, so the add is bound by
+// bytes: a scan level, which reads P and Q from one tensor, moves 773 B
+// per lane (4.1 multiply-adds per byte against the card's balance point
+// of ~5), an add of two tensors 1,157 B (2.7), and masked lanes only
+// copy. Its loads and its arithmetic each take well under its time alone,
+// and they overlap little, so it runs at 35 % of its bound (0.3492 ms
+// against 0.1229 ms on the scan's widest launch, chip_smoke.py, NVIDIA
+// H100 80GB HBM3, 700.00 W).
 
 #include "point.cuh"
 

@@ -70,3 +70,42 @@ assert (R - 1) % (1 << FR_S) == 0 and FR_T % 2 == 1
 assert pow(FR_ROOT_OF_UNITY, 1 << FR_S, R) == 1
 assert pow(FR_ROOT_OF_UNITY, 1 << (FR_S - 1), R) != 1
 assert pow(FR_ZETA, 3, R) == 1 and FR_ZETA != 1
+
+# Canonical Fq values at the edges of the kernels' carry chains, operands
+# of the parity checks (chip_smoke.py, tests/test_torch_*.py): the ends of
+# the field, runs of one-words, q - 2^32, and the Fq pairs on which the
+# reference's two-pass fold of m = T*N' leaves its top limb at exactly 2^16
+# (m + 2^256), where the Montgomery product must still be canonical.
+FOLD_EDGE = (
+    (0x72326b6ab3bab60ef5716a3403b2e8ec463cb5cf3197882005dd3a2e3f08dae,
+     0x1130a235f9489dda1703195ea5270f386b2e092699f440143a78c39876fcf955),
+    (0x22ab954d281c53a985687f21f81c15dd9f8dfdcce53e053a8898e5717efbdbdf,
+     0x4dd03bb06c69ba1cc78706a5ccad2a9456aa692f7ba47bb15fb5389df0af259),
+    (0x294e32083f1f261fd12afbe8cffb7c84a3f6a95ce254b7c84e88414e33678c01,
+     0x1248ed5d820d435d93774c4d22a5a63ac1b64a1f5afed180c65f372df67c3ced),
+)
+FQ_EDGE = ([0, 1, P - 1, P - 2] + [(1 << k) - 1 for k in (32, 64, 128, 253)]
+           + [P - (1 << 32)] + [v for pair in FOLD_EDGE for v in pair])
+
+
+def fq_edge_triples(strides):
+    """Off-curve point pairs of FQ_EDGE values for the point add, which
+    is plain field arithmetic on any canonical X, Y, Z: one 6-tuple
+    (X1, Y1, Z1, X2, Y2, Z2) per lane. First six lanes in which the add's
+    products X1*X2, Y1*Y2 and Z1*Z2 each multiply a FOLD_EDGE pair (the
+    three pairs rotated over the coordinates, in both operand orders);
+    then, for each stride s, lane j giving coordinate c the value
+    FQ_EDGE[(j + s*c) % n], so each stride puts every value in every
+    coordinate once."""
+    n, k = len(FQ_EDGE), len(FOLD_EDGE)
+    fold = []
+    for side in (0, 1):
+        for r in range(k):
+            pairs = [FOLD_EDGE[(r + c) % k] for c in range(3)]
+            fold.append(tuple(pair[side] for pair in pairs)
+                        + tuple(pair[1 - side] for pair in pairs))
+    return fold + [tuple(FQ_EDGE[(j + s * c) % n] for c in range(6))
+                   for s in strides for j in range(n)]
+
+
+assert all(0 <= v < P for v in FQ_EDGE)

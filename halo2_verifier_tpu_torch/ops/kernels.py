@@ -18,7 +18,13 @@ ops/curve.py and ops/decomp.py).
 
 Two limb formats cross this boundary: (16, B) int32 rows of 16-bit limbs
 and (32, B) float32 rows of 8-bit limbs. The float32 kernels take
-canonical limbs, integers in [0, 255], and do not pay for a check.
+canonical limbs, integers in [0, 255], and do not pay for a check. The
+kernels address rows in 32 bits, so every tensor they read or write has
+fewer than 2^31 elements (the wrappers raise otherwise).
+
+`build_report()` states what each built kernel issues: ptxas' registers
+and spill bytes, and from `cuobjdump -sass` the kernel's static SASS
+instruction count with the counts of the classes that explain its bound.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,6 +52,11 @@ SOURCES = ("mont_mul.cu", "point_add.cu", "point_double.cu",
            "mont_mul8.cu", "point_add8.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MAX_ELEMENTS = 1 << 31  # rows are addressed in 32 bits
+# SASS opcode classes counted by sass_report (by opcode stem: IMAD covers
+# IMAD.WIDE, IMAD.HI, IMAD.X; MOV counts MOV and IMAD.MOV, register moves)
+SASS_CLASSES = ("IMAD", "IADD3", "LOP3", "PRMT", "SEL", "F2I", "I2F",
+                "FFMA", "FADD", "LDG", "STG", "MOV")
 
 _lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -79,36 +91,38 @@ def _count(name: str, lanes: int, args: tuple) -> None:
             WIDEST[name] = (lanes, args)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _cuda_tool(name: str) -> str:
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found: the CUDA toolkit is missing")
     return path
 
 
-def _digest() -> str:
+def _digest(csrc_dir: str) -> str:
     h = hashlib.sha256()
-    for name in sorted(os.listdir(CSRC_DIR)):
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+    for name in sorted(os.listdir(csrc_dir)):
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + f.read())
     return h.hexdigest()[:12]
 
 
-def build() -> dict:
-    """Compile every source (one nvcc each, all started together) unless
-    this source hash is built already; returns {source: nvcc/ptxas
-    report}, kept beside each library. Raises if any build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = _digest()
-    nvcc = _nvcc()
+def build(csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR,
+          sources=SOURCES) -> dict:
+    """Compile each of `sources` in csrc_dir into build_dir (one nvcc
+    each, all started together) unless this source hash is built already;
+    returns {source: (library path, nvcc/ptxas log)}, the log kept beside
+    each library. Raises if any build fails."""
+    os.makedirs(build_dir, exist_ok=True)
+    tag = _digest(csrc_dir)
+    nvcc = _cuda_tool("nvcc")
     procs = {}
-    for src in SOURCES:
-        so = os.path.join(BUILD_DIR, f"{src[:-3]}.{tag}.so")
+    for src in sources:
+        so = _so_path(build_dir, src, tag)
         if os.path.exists(so):
             continue
         tmp = f"{so}.{os.getpid()}.tmp"
         procs[src] = (so, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)],
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(csrc_dir, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for src, (so, tmp, proc) in procs.items():
@@ -121,12 +135,97 @@ def build() -> dict:
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    built = {}
+    for src in sources:
+        so = _so_path(build_dir, src, tag)
+        with open(so[:-3] + ".log") as f:
+            built[src] = (so, f.read())
+    return built
+
+
+def _so_path(build_dir: str, src: str, tag: str) -> str:
+    return os.path.join(build_dir, f"{src[:-3]}.{tag}.so")
+
+
+def kernel_label(mangled: str) -> str:
+    """A readable name for a kernel's mangled symbol, e.g.
+    point_add_kernel<Limbs16>, mont_mul_kernel<0>."""
+    names = [mangled[i + len(m.group()):i + len(m.group()) + int(m.group())]
+             for i in range(len(mangled))
+             if (m := re.match(r"\d+", mangled[i:]))]
+    name = next((n for n in names if n.endswith("_kernel")), None)
+    if name is None:
+        return mangled
+    arg = (re.search(r"_kernelILi(\d+)E", mangled)
+           or re.search(r"(Limbs\d+)", mangled))
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel label: {"registers", "spill_bytes"}} from `nvcc -Xptxas -v`
+    output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)),
+                                 {"registers": None, "spill_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_report(so: str) -> dict:
+    """parse_sass of `cuobjdump -sass` on a built library. Raises if
+    cuobjdump is missing or fails."""
+    return parse_sass(subprocess.run(
+        [_cuda_tool("cuobjdump"), "-sass", so], capture_output=True,
+        text=True, check=True, timeout=300).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """{kernel label: {"sass": static instruction count (NOPs left out),
+    class: count for each of SASS_CLASSES}} from `cuobjdump -sass`
+    output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)),
+                                 {"sass": 0, **dict.fromkeys(SASS_CLASSES, 0)})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m is None or cur is None:
+            continue
+        op = m.group(1)
+        stem = "MOV" if op.startswith("IMAD.MOV") else op.split(".")[0]
+        if stem == "NOP":
+            continue
+        cur["sass"] += 1
+        if stem in cur:
+            cur[stem] += 1
+    return out
+
+
+def build_report(csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR,
+                 sources=SOURCES) -> dict:
+    """build(), then {source: {kernel label: ptxas' registers and spill
+    bytes, SASS counts}} for every source."""
     report = {}
-    for src in SOURCES:
-        log = os.path.join(BUILD_DIR, f"{src[:-3]}.{tag}.log")
-        if os.path.exists(log):
-            with open(log) as f:
-                report[src] = f.read()
+    for src, (so, log) in build(csrc_dir, build_dir, sources).items():
+        ptx = ptxas_report(log)
+        for label, counts in sass_report(so).items():
+            report.setdefault(src, {})[label] = {**ptx.get(label, {}),
+                                                 **counts}
     return report
 
 
@@ -155,15 +254,18 @@ SIGNATURES = {
 }
 
 
-def _load(src: str):
-    build()
-    so = os.path.join(BUILD_DIR, f"{src[:-3]}.{_digest()}.so")
+def bind(so: str, src: str):
+    """A built library of `src`, its C entries typed by SIGNATURES."""
     lib = ctypes.CDLL(so)
     for entry, argtypes in SIGNATURES[src].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = _CI
     return lib
+
+
+def _load(src: str):
+    return bind(build()[src][0], src)
 
 
 def _check_limbs(name, fmt, *ts):
@@ -177,6 +279,8 @@ def _check_limbs(name, fmt, *ts):
                              f"got {tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous limbs")
+        if t.numel() >= MAX_ELEMENTS:
+            raise ValueError(f"{name}: a tensor of 2^31 or more elements")
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -283,6 +387,8 @@ def _point_add(name, fmt, src, p, q, mask, iL, iR):
                 or mask.device != p[0].device):
             raise ValueError(f"{name}: mask must be ({b},) uint8/bool")
         mask = mask.contiguous()
+    if rows * b >= MAX_ELEMENTS:
+        raise ValueError(f"{name}: an output of 2^31 or more elements")
     out = torch.empty((3, rows, b), dtype=dtype, device=p[0].device)
     if b == 0:
         return out[0], out[1], out[2]

@@ -16,7 +16,7 @@ from halo2_verifier_tpu_torch.ops import curve, decomp, field as fm
 from halo2_verifier_tpu_torch.ops import field8 as f8
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
 from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
-from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, R
+from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, R, fq_edge_triples
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -169,6 +169,52 @@ def test_point_add8_kernel_matches_plain(cuda):
             assert torch.equal(o, f8.expand16_to8(o16))
         p, p16 = got, got16
     assert kernels.LAUNCHES["point_add8"] == before + 2
+
+
+def test_point_add_kernels_on_edge_triples(cuda):
+    """K2 and K5 on off-curve triples of the carry chains' edge values
+    (every value in every coordinate, each triple once masked and once
+    not), among random canonical lanes: bit for bit against the plain
+    versions, and K5 against K2's re-limbed output."""
+    triples = fq_edge_triples(range(15)) * 2
+    rng = np.random.default_rng(8)
+    width = 4096
+    coords = []
+    for c in range(6):
+        vals = [t[c] for t in triples] + _field_values(
+            P, width - len(triples), 10 + c)
+        coords.append(_limbs_t(vals, cuda))
+    p16, q16 = tuple(coords[:3]), tuple(coords[3:])
+    mask = torch.from_numpy(rng.random(width) < 0.9)
+    mask[:len(triples) // 2] = True
+    mask[len(triples) // 2:len(triples)] = False
+    mask = mask.to(cuda)
+    p8, q8 = _to8(p16), _to8(q16)
+    got16 = curve.masked_add(p16, q16, mask)
+    got8 = curve.OPS8.masked_add(p8, q8, mask)
+    want16 = curve.masked_add_plain(p16, q16, mask)
+    want8 = curve.OPS8.masked_add_plain(p8, q8, mask)
+    torch.cuda.synchronize()
+    for o16, w16, o8, w8 in zip(got16, want16, got8, want8):
+        assert torch.equal(o16, w16)
+        assert torch.equal(o8, w8) and torch.equal(o8, f8.expand16_to8(o16))
+
+
+def test_wrappers_refuse_tensors_past_32_bit_addressing(cuda, monkeypatch):
+    """The kernels address rows in 32 bits; the wrappers refuse an operand
+    or an output of kernels.MAX_ELEMENTS or more elements (the limit is
+    lowered here so that small tensors reach it)."""
+    p = _projective(_points(8), cuda)
+    monkeypatch.setattr(kernels, "MAX_ELEMENTS", 16 * 8)
+    with pytest.raises(ValueError):
+        kernels.point_add(p, p)
+    with pytest.raises(ValueError):
+        kernels.mont_mul(p[0], p[1], 0)
+    monkeypatch.setattr(kernels, "MAX_ELEMENTS", 16 * 8 + 1)
+    idx = torch.zeros(9, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # 9 output lanes from 8 input lanes
+        kernels.point_add(p, p, iL=idx, iR=idx)
+    kernels.point_add(p, p)  # at the limit less one: launches
 
 
 def test_wrappers_refuse_cpu_tensors(cuda):

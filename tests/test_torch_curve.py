@@ -2,7 +2,8 @@
 complete add and double bodies against the JAX package's OPS16 bodies,
 projective outputs bit for bit, on random, identity, equal (P+P) and
 inverse (P+(-P)) pairs; masked_add with a mask and with gather indices;
-to_affine_host against the exact host curve."""
+to_affine_host against the exact host curve; masked_add on off-curve
+triples of the kernels' carry-chain edge values."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +14,7 @@ from halo2_verifier_tpu.ops import hostcurve as jhc
 from halo2_verifier_tpu.ops import lmcurve as lc
 from halo2_verifier_tpu_torch.ops import curve
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
-from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P
+from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, fq_edge_triples
 from halo2_verifier_tpu_torch.ops.field import FQ
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 
@@ -126,3 +127,38 @@ def test_to_affine_host_matches_reference():
     assert curve.to_affine_host(tp) == lc.to_affine_host(
         tuple(np.asarray(c) for c in jp)) == pts
 
+
+
+# the lanes whose products multiply FOLD_EDGE pairs, every edge value in
+# every coordinate (stride 1), then a second pairing; two chunks of 13
+# lanes, the width the tests above already ran the reference's eager body
+# at (a new width recompiles each of its ops)
+EDGE_LANES = 13
+EDGE = fq_edge_triples((1, 7))[:2 * EDGE_LANES]
+
+
+def edge_chunk(chunk):
+    """(P, Q) of one chunk of edge triples as (16, 13) uint32 limb arrays,
+    and a mask taking every other lane."""
+    lanes = EDGE[EDGE_LANES * chunk:EDGE_LANES * (chunk + 1)]
+    cols = [np.ascontiguousarray(ints_to_limbs([t[c] for t in lanes]).T)
+            for c in range(6)]
+    mask = np.arange(EDGE_LANES) % 2 == chunk
+    return tuple(cols[:3]), tuple(cols[3:]), mask
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_masked_add_on_edge_triples_matches_reference(chunk):
+    """The add is plain field arithmetic on any canonical X, Y, Z: the
+    port's masked add (the version the card's kernel is held to) equals
+    the reference's OPS16 add_body + select on the edge triples."""
+    p, q, mask = edge_chunk(chunk)
+    jp = tuple(jnp.asarray(c) for c in p)
+    jq = tuple(jnp.asarray(c) for c in q)
+    want = lc.OPS16.select_point(jnp.asarray(mask),
+                                 lc.OPS16.add_body(jp, jq), jp)
+    got = curve.masked_add(
+        tuple(torch.from_numpy(c.astype(np.int32)) for c in p),
+        tuple(torch.from_numpy(c.astype(np.int32)) for c in q),
+        torch.from_numpy(mask))
+    _eq(want, got)

@@ -2,8 +2,9 @@
 curve.py, OPS8): the complete add and double bodies, masked_add with
 gathers and a mask, from_affine and identity against the JAX package's
 lmcurve.OPS8, run eagerly, projective outputs bit for bit (tolerance 0);
-to_affine_host on float32 limbs; and the two formats against each other
-through the host re-limbing pair."""
+to_affine_host on float32 limbs; the two formats against each other
+through the host re-limbing pair; masked_add on off-curve triples of the
+kernels' carry-chain edge values."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ from halo2_verifier_tpu.ops import lmcurve as lc
 from halo2_verifier_tpu_torch import weights
 from halo2_verifier_tpu_torch.ops import curve
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
-from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P
+from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, fq_edge_triples
 from halo2_verifier_tpu_torch.ops.field import FQ
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 
@@ -154,3 +155,26 @@ def test_formats_agree_through_relimbing():
     for c16, c8 in zip(d16, d8):
         np.testing.assert_array_equal(weights.limbs8_to_limbs16(c8.numpy()),
                                       c16.numpy())
+
+
+# as in tests/test_torch_curve.py: the FOLD_EDGE products, every edge
+# value in every coordinate, two chunks at the 13-lane width the tests above compiled
+EDGE_LANES = 13
+EDGE = fq_edge_triples((1, 7))[:2 * EDGE_LANES]
+
+
+@pytest.mark.parametrize("chunk", [0, 1])
+def test_masked_add_on_edge_triples_matches_reference(chunk):
+    """The port's f8 masked add (the version the card's kernel is held to)
+    equals the reference's OPS8 masked_add on the edge triples."""
+    lanes = EDGE[EDGE_LANES * chunk:EDGE_LANES * (chunk + 1)]
+    cols = [weights.limbs16_to_limbs8(ints_to_limbs([t[c] for t in lanes]).T)
+            for c in range(6)]
+    mask = np.arange(EDGE_LANES) % 2 == chunk
+    want = lc.OPS8.masked_add(tuple(jnp.asarray(c) for c in cols[:3]),
+                              tuple(jnp.asarray(c) for c in cols[3:]),
+                              jnp.asarray(mask))
+    got = OPS8.masked_add(tuple(torch.from_numpy(c) for c in cols[:3]),
+                          tuple(torch.from_numpy(c) for c in cols[3:]),
+                          torch.from_numpy(mask))
+    _eq(want, got)

@@ -14,8 +14,8 @@ import torch
 
 from halo2_verifier_tpu.ops import lmfield as lf
 from halo2_verifier_tpu.ops.field_jax import FQ as JFQ, FR as JFR
+from halo2_verifier_tpu_torch.ops import constants, kernels
 from halo2_verifier_tpu_torch.ops import field as fm
-from halo2_verifier_tpu_torch.ops import kernels
 from halo2_verifier_tpu_torch.ops.constants import P, R
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 
@@ -40,14 +40,8 @@ ADVERSARIAL = [0, 1, 2, (1 << 16) - 1, (1 << 255) % P, P - 1, P - 2,
 
 # Fq pairs on which the reference's two-pass fold of m = T*N' leaves its
 # top limb at exactly 2^16 (m + 2^256): the result must still be canonical
-FOLD_EDGE = [
-    (0x72326b6ab3bab60ef5716a3403b2e8ec463cb5cf3197882005dd3a2e3f08dae,
-     0x1130a235f9489dda1703195ea5270f386b2e092699f440143a78c39876fcf955),
-    (0x22ab954d281c53a985687f21f81c15dd9f8dfdcce53e053a8898e5717efbdbdf,
-     0x4dd03bb06c69ba1cc78706a5ccad2a9456aa692f7ba47bb15fb5389df0af259),
-    (0x294e32083f1f261fd12afbe8cffb7c84a3f6a95ce254b7c84e88414e33678c01,
-     0x1248ed5d820d435d93774c4d22a5a63ac1b64a1f5afed180c65f372df67c3ced),
-]
+# (kept in the port's constants, which chip_smoke.py feeds to the card)
+FOLD_EDGE = constants.FOLD_EDGE
 
 
 def _operands(modulus, n=48, seed=0):
@@ -195,3 +189,45 @@ def test_launch_counters_record_widest_launch():
     kernels._count("mont_mul", 5, ("d",))
     assert kernels.WIDEST == {} and kernels.LANES["point_add"] == 0
     kernels.reset_launches()
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3h2v16point_add_kernelINS_6Limbs8EEEvPKNT_1TES5_S5_jS5_S5_S5_jPKiS7_PKhPS3_SB_SB_j' for 'sm_90a'
+ptxas info    : Function properties for _ZN3h2v16point_add_kernelINS_6Limbs8EEEv
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mont_mul_kernelILi1EEEvPKiS2_Pij' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers
+"""
+SASS_TEXT = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_115mont_mul_kernelILi1EEEvPKiS2_Pij
+        /*0000*/                   LDC R1, c[0x0][0x28] ;       /* 0x00000a00ff017b82 */
+                                                                /* 0x000fe40000000800 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R0, 0x4, R2 ;
+        /*0020*/              @!P0 IADD3.X R3, P1, R4, R5, RZ, P0, !PT ;
+        /*0030*/                   IMAD.MOV.U32 R6, RZ, RZ, R7 ;
+        /*0040*/                   NOP ;
+        /*0050*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_121sqrt_principal_kernelEPKiPij
+        /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*0010*/               @UP0 PRMT R1, R2, 0x5410, R3 ;
+"""
+
+
+def test_build_report_parsers():
+    """What chip_smoke.py's build line reads: ptxas' registers and spill
+    bytes, and the SASS counts of cuobjdump -sass, by readable kernel
+    name."""
+    assert kernels.kernel_label(
+        "_ZN12_GLOBAL__N_116mont_mul8_kernelILi0EEEvPKfS2_Pfj") == (
+            "mont_mul8_kernel<0>")
+    assert kernels.ptxas_report(PTXAS_LOG) == {
+        "point_add_kernel<Limbs8>": {"registers": 128, "spill_bytes": 12},
+        "mont_mul_kernel<1>": {"registers": 32, "spill_bytes": 0}}
+    sass = kernels.parse_sass(SASS_TEXT)
+    mm = sass["mont_mul_kernel<1>"]
+    assert (mm["sass"], mm["IMAD"], mm["IADD3"], mm["MOV"]) == (5, 1, 1, 1)
+    sq = sass["sqrt_principal_kernel"]
+    assert (sq["sass"], sq["LDG"], sq["PRMT"], sq["IMAD"]) == (2, 1, 1, 0)

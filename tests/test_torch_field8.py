@@ -3,7 +3,8 @@ field8.py): every plain body against the JAX package's lmfield8 body on
 the same numpy inputs, bit for bit (tolerance 0: the limbs are integers),
 for Fq and Fr at B = 64 with the adversarial operands of
 tests/test_lm8_kernels.py; carry_full on 255-ripple chains; the constants;
-expand16_to8 and the host re-limbing pair of weights.py."""
+expand16_to8 and the host re-limbing pair of weights.py; the float-bit
+identities the card's kernels pack and unpack this format with."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,3 +155,49 @@ def test_expand16_to8_and_host_relimbing_pair():
     np.testing.assert_array_equal(
         weights.limbs8_to_limbs16(weights.limbs16_to_limbs8(stacked)),
         stacked.astype(np.int32))
+
+
+MAGIC = np.float32(8388608.0)  # 2^23: bits 0x4B000000 | x for x < 2^23
+
+
+def _byte_perm(x, y, selector):
+    """numpy mirror of CUDA's __byte_perm(x, y, s): byte k of the result
+    is byte (s >> 4k) & 7 of the eight bytes of (y:x)."""
+    x, y = np.asarray(x, np.uint32), np.asarray(y, np.uint32)
+    src = [(x >> np.uint32(8 * k)) & np.uint32(0xFF) for k in range(4)]
+    src += [(y >> np.uint32(8 * k)) & np.uint32(0xFF) for k in range(4)]
+    out = np.zeros(np.broadcast(x, y).shape, np.uint32)
+    for k in range(4):
+        out |= src[(selector >> (4 * k)) & 7] << np.uint32(8 * k)
+    return out
+
+
+def test_kernel_packing_identities_exhaustive():
+    """csrc/field.cuh Limbs8, mirrored in float32: on loading,
+    fmaf(l1, 256, l0 + 2^23) carries l0 + 256 l1 in its low 16 bits for
+    all 65,536 limb pairs, and byte_perm(lo, hi, 0x5410) joins two halves
+    into the word; on storing, byte_perm(w, 0x4B000000, 0x765k) - 2^23 is
+    byte k of w as an exact float, for every byte in every position."""
+    limbs = np.arange(256, dtype=np.float32)
+    l0, l1 = (a.ravel() for a in np.meshgrid(limbs, limbs, indexing="ij"))
+    # the fma rounds once: its exact value in float64, rounded to float32
+    fma = (l1.astype(np.float64) * 256 + (l0 + MAGIC)).astype(np.float32)
+    halves = fma.view(np.uint32)
+    want = l0.astype(np.uint32) + 256 * l1.astype(np.uint32)
+    np.testing.assert_array_equal(halves & np.uint32(0xFFFF), want)
+    # two float32 steps give the same bits (every value is exact)
+    np.testing.assert_array_equal(
+        (l1 * np.float32(256) + (l0 + MAGIC)).view(np.uint32), halves)
+    hi = halves[::-1]
+    np.testing.assert_array_equal(_byte_perm(halves, hi, 0x5410),
+                                  want + (want[::-1] << np.uint32(16)))
+    b = np.arange(256, dtype=np.uint32)
+    words = np.concatenate([b * np.uint32(0x01010101),
+                            b | (b[::-1] << np.uint32(8))
+                            | (b << np.uint32(16)) | (b[::-1] << np.uint32(24))])
+    for k in range(4):
+        f = _byte_perm(words, 0x4B000000, 0x7650 | k).view(np.float32) - MAGIC
+        assert f.dtype == np.float32
+        np.testing.assert_array_equal(
+            f, ((words >> np.uint32(8 * k)) & np.uint32(0xFF)).astype(
+                np.float32))
