@@ -14,8 +14,11 @@ Phases, one output line each (JSON unless noted):
    gathers (random, identity, P+P and P+(-P) pairs, masked lanes, two
    rounds so general projective inputs are covered, then off-curve
    triples of the carry chains' edge values, masked and unmasked), the
-   fused square root
-   against the loop of Montgomery-multiply launches and the plain version;
+   square root at 15,360 and 16,384 lanes against the plain version (and
+   at 16,384 against the loop of Montgomery-multiply launches), edge x
+   values included (0, 1, q - 1, q - 2^32, x^3 + 3 a non-residue); the
+   level-0 frontier on phase 4's plan (532,480 lanes from 17,408 points:
+   the plan's repeated indices, (0, 0) points and the identity pad);
    at scan widths: the doubling at 2^19 lanes (random points, identities,
    outputs of an earlier add), the 8-bit-limb Montgomery multiply (Fq and
    Fr, 16,384 and 532,480 lanes) and the 8-bit-limb point add at 532,480
@@ -28,24 +31,28 @@ Phases, one output line each (JSON unless noted):
    against the exact host MSM, the f8 window totals bit-equal to the
    re-limbed u16 totals;
 5. the main paths, each with every kernel's launch count set to 0 just
-   before and read just after: BatchVerifier.verify_stream over streamed
-   batches of 1,024 k=14 mac_range proofs (the committed pack tiled, as
-   bench.py does), every batch ok, through the VM fast path, with the
-   forest MSM, then with msm="scan" in "u16" (8 batches) and "f8" (4);
+   before and read just after, and each refused if a kernel outside its
+   list launched or one on it did not: BatchVerifier.verify_stream over
+   streamed batches of 1,024 k=14 mac_range proofs (the committed pack
+   tiled, as bench.py does), every batch ok, through the VM fast path,
+   with the forest MSM (the frontier, point-add and square-root kernels;
+   no Montgomery multiply), then with msm="scan" in "u16" (8 batches) and
+   "f8" (4);
    for the forest and the scan, a 64-proof batch with one public input
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
    device, in either package);
 6. kernel timings on the arguments of each kernel's widest launch on its
-   path (the wrappers keep them), beside the plain version and the bound;
+   path (the wrappers keep them), beside the plain version and the bound,
+   and the square root also at 32 lanes (one warp: one chain's latency);
    the whole device stage of phase 4's batch-sized forest and scans; the
    device busy share of a profiled stream on the warm verifier.
 
 The line before the last holds the kernels' record and the one before it
 the `nvidia-smi` text; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Any failure exits non-zero, and without a CUDA card the script prints no
-result and exits 2.
+Any failure exits non-zero; without a CUDA card the script prints no
+result and exits 2, and without the package beside it, 3.
 
 Usage: python3 chip_smoke.py [--batches N]
 """
@@ -64,7 +71,7 @@ TAMPER_BATCH = 64
 TAMPER_INDEX = 37
 MONT_MUL_WIDTHS = (16384, 1 << 19)  # decomp width, and a wide one
 POINT_ADD_WIDTH = 524288            # the forest's level-0 frontier
-SQRT_WIDTH = 16384                  # ~15 points x 1,024 proofs, padded
+SQRT_WIDTHS = (15360, 16384)        # 15 points x 1,024 proofs; padded
 FOREST_SIZES = (1024, 15616)       # one main-path batch's two MSM groups
 SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
 POINT_DOUBLE_WIDTH = 524288
@@ -103,24 +110,32 @@ def ops(*terms):
 
 
 MONT_MUL = (128 * 2 + 8, 16, 0)
+# a squaring: 36 word products for a^2 (28 cross products, doubled, and 8
+# on the diagonal), 64 + 8 for the reduction
+MONT_SQR = ((36 + 64) * 2 + 8, 16, 0)
 ADD_SUB = (0, 24, 0)
 LOAD16, STORE16 = (0, 8, 0), (0, 16, 0)
 LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
-# square root: x*R^2, x^2, x^3, one product per set bit of (q+1)/4 and one
-# squaring per bit after its lowest, one product out of Montgomery form;
-# one add; one load, one store
-SQRT_EXP_BITS = 252
-SQRT_EXP_ONES = 109
-OPS_SQRT = ops((3 + SQRT_EXP_ONES + SQRT_EXP_BITS - 1 + 1, MONT_MUL),
-               (1, ADD_SUB), (1, LOAD16), (1, STORE16))
 # doubling (RCB15 alg. 9): 8 products, 14 adds/subtracts, 3 loads and 3
 # stores
 OPS_POINT_DOUBLE = ops((8, MONT_MUL), (14, ADD_SUB), (3, LOAD16),
                        (3, STORE16))
+
+
+def ops_sqrt(squarings, multiplies):
+    """Square root: the chain the kernel runs (ops/decomp.py
+    sqrt_chain_counts: with its 4-bit window 250 squarings and 72
+    products, the three of x^3 and the one out of Montgomery form
+    included); one add; one load, one store."""
+    return ops((squarings, MONT_SQR), (multiplies, MONT_MUL), (1, ADD_SUB),
+               (1, LOAD16), (1, STORE16))
+
+
 LIMB_BYTES = 16 * 4  # one element, (16,) int32 limbs
 LIMB_BYTES8 = 32 * 4  # one element, (32,) float32 limbs
 FORMAT = {  # kernel -> (bytes per element, ops to load one, ops to store)
     "mont_mul": (LIMB_BYTES, LOAD16, STORE16),
+    "forest_frontier0": (LIMB_BYTES, LOAD16, STORE16),
     "point_add": (LIMB_BYTES, LOAD16, STORE16),
     "mont_mul8": (LIMB_BYTES8, LOAD8, STORE8),
     "point_add8": (LIMB_BYTES8, LOAD8, STORE8),
@@ -436,20 +451,63 @@ def phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev, width):
 
 
 def phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev):
-    from halo2_verifier_tpu_torch.ops.constants import G1_GEN
+    """The square root at the main path's width and padded to 16,384:
+    half curve points' x, half random canonical x (half of those off the
+    curve), the edge values in the first lanes; against the plain
+    version, and at 16,384 lanes also the loop of Montgomery-multiply
+    launches. The edge lanes (constants.sqrt_edge_xs) also against pow on
+    Python integers."""
+    from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, sqrt_edge_xs
+    from halo2_verifier_tpu_torch.ops.limbs import limbs_to_ints
 
-    width = SQRT_WIDTH
+    width = max(SQRT_WIDTHS)
     pts = curve_points(hc, G1_GEN, width // 2, 11)
     rng = np.random.default_rng(4)
-    xs = np.concatenate([ints_to_limbs([p[0] for p in pts]),
-                         random_field(np, rng, fm.FQ.modulus, width // 2)])
+    edge = sqrt_edge_xs()
+    xs = np.concatenate([ints_to_limbs(edge),
+                         ints_to_limbs([p[0] for p in pts]),
+                         random_field(np, rng, fm.FQ.modulus,
+                                      width // 2 - len(edge))])
     X = torch.from_numpy(xs.T.astype(np.int32).copy()).to(dev)
-    fused = decomp.y_principal(X)
-    loop = decomp.y_principal_k1(X)
-    plain = decomp.y_principal_plain(X)
-    err = max(max_abs_err(torch, fused, plain),
-              max_abs_err(torch, loop, plain))
-    return {"phase": "parity_sqrt", "tolerance": 0, "lanes": width,
+    checked, worst = [], 0
+    for lanes in SQRT_WIDTHS:
+        x = X[:, :lanes].contiguous()
+        fused = decomp.y_principal(x)
+        err = max_abs_err(torch, fused, decomp.y_principal_plain(x))
+        if lanes == width:
+            err = max(err, max_abs_err(torch, decomp.y_principal_k1(x),
+                                       fused))
+        worst = max(worst, err)
+        checked.append([lanes, err])
+    got = limbs_to_ints(fused[:, :len(edge)].cpu().numpy().T)
+    if got != [pow((x ** 3 + 3) % P, (P + 1) // 4, P) for x in edge]:
+        raise AssertionError("sqrt: edge lanes differ from pow")
+    return {"phase": "parity_sqrt", "tolerance": 0, "lanes": list(SQRT_WIDTHS),
+            "edge_lanes": len(edge), "max_abs_err": worst,
+            "checked": checked}
+
+
+def phase_frontier(torch, np, msm_forest, forest_inputs, dev):
+    """The level-0 frontier kernel at the forest's widths, on phase 4's
+    plan (every point gathered once per nonzero window digit; the identity
+    pad's index) and points, a few of them set to (0, 0), against the
+    plain version."""
+    x_np, y_np, plan, _dev = forest_inputs
+    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    xs[:, ::997] = 0  # identity points among the real ones
+    ys[:, ::997] = 0
+    X = torch.from_numpy(xs.view(np.int32)).to(dev)
+    Y = torch.from_numpy(ys.view(np.int32)).to(dev)
+    idx = torch.from_numpy(plan["point_idx0"]).to(dev)
+    got = msm_forest.frontier0(X, Y, idx)
+    err = max_abs_err(torch, got, msm_forest.frontier0_plain(X, Y, idx))
+    pad = int((plan["point_idx0"] == plan["n_pad"] - 1).sum())
+    zero = int(np.isin(plan["point_idx0"],
+                       np.flatnonzero((xs == 0).all(0) & (ys == 0).all(0)))
+               .sum())
+    return {"phase": "parity_forest_frontier0", "tolerance": 0,
+            "lanes": int(idx.shape[0]), "points": int(plan["n_pad"]),
+            "identity_lanes": zero, "identity_pad_lanes": pad,
             "max_abs_err": err}
 
 
@@ -615,13 +673,17 @@ def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
 
 # name, source, TPU kernel it replaces, the path whose run gives its row
 KERNELS = (
-    ("mont_mul", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
-     "halo2_verifier_tpu/ops/lmfield.py:440", "main_path"),
+    ("forest_frontier0", "halo2_verifier_tpu_torch/csrc/frontier.cu",
+     "halo2_verifier_tpu/ops/lmfield.py:440 (K1's use in "
+     "halo2_verifier_tpu/ops/msm_forest.py:342 _convert_points, with "
+     ":353 _gather0)", "main_path"),
     ("point_add", "halo2_verifier_tpu_torch/csrc/point_add.cu",
      "halo2_verifier_tpu/ops/lmcurve.py:73", "main_path"),
     ("sqrt_principal", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
      "halo2_verifier_tpu/ops/lmfield.py:440 (via "
      "halo2_verifier_tpu/ops/decomp_jax.py:54)", "main_path"),
+    ("mont_mul", "halo2_verifier_tpu_torch/csrc/mont_mul.cu",
+     "halo2_verifier_tpu/ops/lmfield.py:440", "scan_path_u16"),
     ("point_double", "halo2_verifier_tpu_torch/csrc/point_double.cu",
      "halo2_verifier_tpu/ops/lmcurve.py:273", "double_path"),
     ("mont_mul8", "halo2_verifier_tpu_torch/csrc/mont_mul8.cu",
@@ -677,10 +739,20 @@ def kernel_case(name, args, curve, fm, f8, decomp):
         b = p[0].shape[1]
         return (lambda: curve.double_plain(p), 2 * 3 * LIMB_BYTES * b,
                 ops((b, OPS_POINT_DOUBLE)))
+    if name == "forest_frontier0":
+        from halo2_verifier_tpu_torch.ops import msm_forest
+
+        xs, ys, idx = args
+        n, w0 = xs.shape[1], idx.shape[0]
+        # the points and the index read once, the frontier written once;
+        # per output lane two products, two loads, three stores
+        return (lambda: msm_forest.frontier0_plain(xs, ys, idx),
+                2 * LIMB_BYTES * n + 4 * w0 + 3 * LIMB_BYTES * w0,
+                ops((2 * w0, MONT_MUL), (2 * w0, LOAD16), (3 * w0, STORE16)))
     (xs,) = args
     b = xs.shape[1]
     return (lambda: decomp.y_principal_plain(xs), 2 * LIMB_BYTES * b,
-            ops((b, OPS_SQRT)))
+            ops((b, ops_sqrt(*decomp.sqrt_chain_counts()))))
 
 
 def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
@@ -696,6 +768,17 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
                        reps=1 if name == "sqrt_principal" else 3)
     bound_ms, bound_by = card.bound(nbytes, counts)
     n = record["batches"]
+    extra = {}
+    if name == "sqrt_principal":
+        # one warp alone: how far the launch is from one chain's latency
+        one_warp = args[0][:, :32].contiguous()
+        ms32 = time_ms(torch, lambda: fn(one_warp), reps=20)
+        squarings, multiplies = decomp.sqrt_chain_counts()
+        extra = {"ms_32_lanes": round(ms32, 4),
+                 "ms_over_ms_32_lanes": round(ms / ms32, 3),
+                 "chain": {"window_bits": decomp.SQRT_WINDOW,
+                           "squarings": squarings,
+                           "multiplies": multiplies}}
     return {
         "launches": record["launches"][name],
         "launches_per_batch": round(record["launches"][name] / n, 2),
@@ -705,26 +788,25 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
         "bytes": nbytes, "operations": sum(counts),
         "operations_by_pipe": dict(zip(("imad", "alu", "fp32"), counts)),
         "lanes_per_batch": round(record["lanes"][name] / n),
+        **extra,
     }
 
 
 def phase_timings(torch, card, kernels, records, curve, fm, f8, decomp):
     """The kernels' rows, each on its own path's record, and the
-    16-bit-limb kernels once more at the scan path's widest launches, to
-    stand beside the 8-bit-limb kernels on the same work."""
+    16-bit-limb point add once more at the scan path's widest launch, to
+    stand beside the 8-bit-limb one on the same work."""
     rows = []
     for name, src, replaces, path in KERNELS:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "path": path,
                      **time_kernel(torch, card, kernels, name, records[path],
                                    curve, fm, f8, decomp)})
-    beside = [
-        {"phase": f"timing_scan_path_u16_{name}", "name": name,
-         "path": "scan_path_u16",
-         **time_kernel(torch, card, kernels, name, records["scan_path_u16"],
-                       curve, fm, f8, decomp)}
-        for name in ("mont_mul", "point_add")
-    ]
+    beside = {"phase": "timing_scan_path_u16_point_add", "name": "point_add",
+              "path": "scan_path_u16",
+              **time_kernel(torch, card, kernels, "point_add",
+                            records["scan_path_u16"], curve, fm, f8,
+                            decomp)}
     return rows, beside
 
 
@@ -831,7 +913,13 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
+    try:
+        from halo2_verifier_tpu_torch.parallel.orchestrator import (
+            BatchVerifier)
+    except ImportError as e:
+        print(f"chip_smoke: the package halo2_verifier_tpu_torch is not "
+              f"beside this script ({e}); nothing was run", file=sys.stderr)
+        return 3
 
     card = Card(torch)
     run(torch, card, torch.device("cuda"), args.batches, BatchVerifier)
@@ -876,6 +964,7 @@ def run(torch, card, dev, n_batches, make_verifier):
         torch, np, hc, msm_forest, msm, ints_to_limbs, dev)
     if not emit(forest_res)["equal_to_host_msm"]:
         raise AssertionError("forest MSM differs from the host MSM")
+    emit(phase_frontier(torch, np, msm_forest, forest_inputs, dev))
     scan_res, scan_inputs = phase_scan_msm(torch, msm_scan, msm, weights,
                                            case, dev)
     emit(scan_res)
@@ -886,14 +975,14 @@ def run(torch, card, dev, n_batches, make_verifier):
 
     fixture = weights.load_k14_mac_fixture()
     records = {}
-    u16_kernels = ("mont_mul", "point_add", "sqrt_principal")
     main_res, records["main_path"], bv = phase_stream(
         torch, kernels, fixture, make_verifier, n_batches, "main_path",
-        u16_kernels)
+        ("forest_frontier0", "point_add", "sqrt_principal"))
     emit(main_res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch"))
-    for backend, expect in (("u16", u16_kernels),
+    for backend, expect in (("u16", ("mont_mul", "point_add",
+                                      "sqrt_principal")),
                             ("f8", ("mont_mul8", "point_add8",
                                     "sqrt_principal"))):
         path = f"scan_path_{backend}"
@@ -915,8 +1004,7 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(phase_profile(torch, bv, fixture, n_batches))
     for r in rows:
         emit({"phase": f"timing_{r['name']}", **r})
-    for r in beside:
-        emit(r)
+    emit(beside)
     out({"phase": "done", "seconds": round(time.time() - t_start, 3), **tag})
     out(card.smi)
     out({"kernels": rows})

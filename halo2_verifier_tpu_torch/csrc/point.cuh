@@ -18,7 +18,7 @@
 namespace h2v {
 
 // The masked add's body and launch shape for each limb format, chosen on
-// the card by sweep_point_add.py (table in PERF.md): the body, unrolled
+// the card by sweep_kernels.py point_add (PERF.md): the body, unrolled
 // or rolled into loops over the coordinates (add_rolled), and block size
 // x minimum blocks per SM, which caps registers at 65,536 / (threads x
 // blocks). On an NVIDIA H100 80GB HBM3 at 700.00 W: the 16-bit format

@@ -21,7 +21,8 @@
 // field arithmetic is PTX carry chains on 32-bit words (field.cuh); rows
 // are addressed in 32 bits from the lane's own pointer. The body is
 // unrolled, launched as 256 threads x 2 blocks per SM (128 registers, no
-// spill, 16 warps per SM), the fastest of sweep_point_add.py's shapes.
+// spill, 16 warps per SM), the fastest shape of sweep_kernels.py
+// point_add.
 //
 // Bound on this card: a lane moves up to 584 B (two gathered 192 B points,
 // 8 B of indices, 192 B written; a forest level reads its frontier about

@@ -23,8 +23,8 @@
 // bytes and byte permutes, never another arithmetic. Its body is rolled
 // (point.cuh add_rolled): unrolled, its 9k SASS instructions (143 KB)
 // outgrow the instruction cache, and the add took 0.60 ms on the scan's
-// widest launch against 0.35 rolled (sweep_point_add.py, NVIDIA H100 80GB
-// HBM3, 700.00 W).
+// widest launch against 0.35 rolled (sweep_kernels.py point_add, NVIDIA
+// H100 80GB HBM3, 700.00 W).
 //
 // Bound on this card: the least operation count is that of the 16-bit
 // add (3,168 multiply-adds per adding lane) with 32 byte permutes per

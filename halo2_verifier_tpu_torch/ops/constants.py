@@ -108,4 +108,13 @@ def fq_edge_triples(strides):
                    for s in strides for j in range(n)]
 
 
+def sqrt_edge_xs():
+    """x operands at the square root's edges: FQ_EDGE, and the first x
+    whose x^3 + 3 is a non-residue (off the curve: its root fails the
+    VM's check)."""
+    nonres = next(x for x in range(2, 100)
+                  if pow((x ** 3 + 3) % P, (P - 1) // 2, P) == P - 1)
+    return FQ_EDGE + [nonres]
+
+
 assert all(0 <= v < P for v in FQ_EDGE)

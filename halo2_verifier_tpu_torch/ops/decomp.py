@@ -10,11 +10,13 @@ VM only checks y0^2 == x^3 + 3 and applies the sign bit. A wrong y0
 rejects the proof exactly like a failed sqrt, so soundness never depends
 on the device result.
 
-On the card the whole exponentiation is one launch of the fused square-
-root kernel (csrc/mont_mul.cu), which keeps each lane's state in
-registers. `y_principal_k1` is the simple port (a Python loop of
-Montgomery-multiply launches) and `y_principal_plain` the plain version;
-both serve as yardsticks.
+On the card the whole exponentiation is one launch of the square-root
+kernel (csrc/mont_mul.cu), which keeps each lane's state in registers and
+runs the exponent by a fixed window of SQRT_WINDOW bits. The plain
+version `y_principal_plain` runs the same schedule (`pow_window`) on the
+plain bodies, and `y_principal_k1`, the simple port, as a Python loop of
+Montgomery-multiply launches; both serve as yardsticks. Every schedule
+gives the reference's roots: each step's result is a canonical residue.
 """
 
 from __future__ import annotations
@@ -31,6 +33,12 @@ from .limbs import NLIMBS, int_to_limbs
 # pad widths quantize to this, as in the reference
 PAD_GRAN = 1024
 
+# the exponent (q + 1) / 4, and the square-root kernel's window width
+# (csrc/mont_mul.cu SqrtShape::kWindow; tests/test_torch_decomp.py checks
+# that the two agree)
+SQRT_EXP = (P + 1) // 4
+SQRT_WINDOW = 4
+
 _B_MONT = [int(v) for v in int_to_limbs(3 * FQ.mont_r % P)]
 _ONE = [int(v) for v in int_to_limbs(1)]
 
@@ -40,14 +48,51 @@ def _col(vals, like):
         NLIMBS, 1).expand_as(like).contiguous()
 
 
+def window_digits(e: int, w: int):
+    """e's digits in base 2^w, most significant first."""
+    n = -(-e.bit_length() // w)
+    return [(e >> (w * k)) & ((1 << w) - 1) for k in reversed(range(n))]
+
+
+def pow_window(a, e: int, w: int, mul):
+    """a^e by a fixed window of w bits, most significant digit first: the
+    table a^1..a^(2^w - 1) (one squaring, then products by a), then per
+    lower digit w squarings and a product by the table's entry unless the
+    digit is 0. The schedule of the square-root kernel's pow_sqrt_exp."""
+    tab = [None, a]
+    for d in range(2, 1 << w):
+        tab.append(mul(tab[1], tab[1]) if d == 2 else mul(tab[d - 1], a))
+    digits = window_digits(e, w)
+    r = tab[digits[0]]
+    for d in digits[1:]:
+        for _ in range(w):
+            r = mul(r, r)
+        if d:
+            r = mul(r, tab[d])
+    return r
+
+
+def sqrt_chain_counts(w: int = SQRT_WINDOW):
+    """(squarings, multiplies) of the square-root kernel per lane: x R'
+    (one product), x^2, x^3, the window's table and digits, and one
+    product out of Montgomery form."""
+    digits = window_digits(SQRT_EXP, w)
+    table_sq = 1 if w > 1 else 0
+    table_mul = max((1 << w) - 3, 0)
+    squarings = 1 + table_sq + w * (len(digits) - 1)
+    multiplies = 3 + table_mul + sum(1 for d in digits[1:] if d)
+    return squarings, multiplies
+
+
 def _y_chain(xs, mul, add):
-    """The reference's _y_principal over the given multiply and add."""
+    """The reference's _y_principal over the given multiply and add, the
+    exponent by the kernel's window schedule."""
     xm = mul(xs, FQ.col("r2", xs.device).to(xs.dtype).expand_as(xs)
              .contiguous())
     x2 = mul(xm, xm)
     x3 = mul(x2, xm)
     rhs = add(x3, _col(_B_MONT, xs))
-    y = fm.pow_bits_body(rhs, FQ.sqrt_exp_bits, FQ, mul=mul)
+    y = pow_window(rhs, SQRT_EXP, SQRT_WINDOW, mul)
     return mul(y, _col(_ONE, xs))  # from Montgomery
 
 
@@ -61,7 +106,7 @@ def y_principal_plain(xs):
 
 def y_principal_k1(xs):
     """The simple port: every product one Montgomery-multiply launch
-    (about 370 launches per call)."""
+    (322 launches per call)."""
     return _y_chain(xs, lambda a, b: fm.mont_mul(a, b, FQ),
                     lambda a, b: fm.add(a, b, FQ))
 

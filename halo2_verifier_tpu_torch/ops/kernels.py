@@ -14,7 +14,7 @@ after reset_launches(record=True) it also keeps the arguments of its
 widest launch, so a caller can rerun exactly that launch.
 There is no fallback: a wrapper given CPU tensors raises (the plain
 versions live beside the callers, in ops/field.py, ops/field8.py,
-ops/curve.py and ops/decomp.py).
+ops/curve.py, ops/decomp.py and ops/msm_forest.py).
 
 Two limb formats cross this boundary: (16, B) int32 rows of 16-bit limbs
 and (32, B) float32 rows of 8-bit limbs. The float32 kernels take
@@ -48,7 +48,7 @@ FORMATS = {"u16": (NLIMBS, torch.int32), "f8": (NLIMBS8, torch.float32)}
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("mont_mul.cu", "point_add.cu", "point_double.cu",
+SOURCES = ("mont_mul.cu", "frontier.cu", "point_add.cu", "point_double.cu",
            "mont_mul8.cu", "point_add8.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -63,8 +63,9 @@ _build_lock = threading.Lock()
 _libs: dict = {}
 
 # launches and output lanes per kernel since the last reset_launches()
-LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "point_add": 0,
-            "point_double": 0, "mont_mul8": 0, "point_add8": 0}
+LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
+            "point_add": 0, "point_double": 0, "mont_mul8": 0,
+            "point_add8": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
@@ -247,6 +248,10 @@ SIGNATURES = {
         "h2v_mont_mul": [_VP, _VP, _VP, _LL, _CI, _VP],
         "h2v_sqrt_principal": [_VP, _VP, _LL, _VP],
     },
+    "frontier.cu": {
+        "h2v_forest_frontier0": [_VP, _VP, _LL, _VP] + [_VP] * 3
+        + [_LL, _VP, _VP],
+    },
     "point_add.cu": {"h2v_point_add": _POINT_ADD_ARGS},
     "point_double.cu": {"h2v_point_double": [_VP] * 6 + [_LL, _VP]},
     "mont_mul8.cu": {"h2v_mont_mul8": [_VP, _VP, _VP, _LL, _CI, _VP]},
@@ -321,8 +326,8 @@ def mont_mul8(a, b, field_id: int):
 
 
 def sqrt_principal(xs):
-    """K1, fused: (16, B) canonical x limbs -> canonical principal roots
-    y0 = (x^3 + 3)^((q+1)/4) in one launch (decomp pre-pass)."""
+    """The decomp pre-pass's square root: (16, B) canonical x limbs ->
+    canonical principal roots y0 = (x^3 + 3)^((q+1)/4) in one launch."""
     _check_limbs("sqrt_principal", "u16", xs)
     out = torch.empty_like(xs)
     if out.numel() == 0:
@@ -334,6 +339,41 @@ def sqrt_principal(xs):
     _raise_on(rc, "sqrt_principal")
     _count("sqrt_principal", xs.shape[1], (xs,))
     return out
+
+
+def forest_frontier0(xs, ys, idx):
+    """The forest's level-0 frontier: (16, n) canonical affine limbs xs,
+    ys and a (w0,) int32 index into their lanes (in range: the caller's
+    contract, the forest validates its plan on the host) -> the
+    projective Montgomery points of the indexed lanes, (0, 0) lanes as
+    the identity. Returns a (X, Y, Z) tuple of (16, w0) views into one
+    (3, 16, w0) tensor."""
+    _check_limbs("forest_frontier0", "u16", xs, ys)
+    n = xs.shape[1]
+    if ys.shape[1] != n:
+        raise ValueError("forest_frontier0: xs and ys widths differ")
+    if (idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != xs.device
+            or not idx.is_contiguous()):
+        raise ValueError("forest_frontier0: idx must be a contiguous 1-D "
+                         "int32 tensor on the card")
+    w0 = idx.shape[0]
+    if NLIMBS * w0 >= MAX_ELEMENTS:
+        raise ValueError("forest_frontier0: an output of 2^31 or more "
+                         "elements")
+    out = torch.empty((3, NLIMBS, w0), dtype=torch.int32, device=xs.device)
+    if w0 == 0:
+        return out[0], out[1], out[2]
+    # the kernel's point-major copy of the converted points, 64 B each
+    scratch = torch.empty((n, NLIMBS), dtype=torch.int32, device=xs.device)
+    lib = _lib("frontier.cu")
+    with torch.cuda.device(xs.device):
+        rc = lib.h2v_forest_frontier0(
+            xs.data_ptr(), ys.data_ptr(), n, idx.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), w0,
+            scratch.data_ptr(), _stream(xs.device))
+    _raise_on(rc, "forest_frontier0")
+    _count("forest_frontier0", w0, (xs, ys, idx))
+    return out[0], out[1], out[2]
 
 
 def point_double(p):

@@ -1,0 +1,347 @@
+#!/usr/bin/env python3
+"""Sweep a kernel's launch shape and body on one card.
+
+Two kernels, each built from scratch copies of the sources, one copy per
+variant, through ops/kernels.build_report (every variant's nvcc started
+together), which reports ptxas' registers and spill bytes and the SASS
+counts of `cuobjdump -sass`; a build that spills is reported and not
+timed. Every other build is checked bit for bit against the plain version
+and timed with CUDA events, all variants of one launch in turns (forward,
+then backward), with seeded canonical operands of the main path's shapes.
+
+point_add: the masked point adds, K2 (csrc/point_add.cu, 16-bit limbs)
+and K5 (csrc/point_add8.cu, 8-bit limbs in float32), per body and launch
+shape (point.cuh AddShape): the unrolled or the rolled body, and block
+size x minimum blocks per SM, the `__launch_bounds__` pair that caps
+registers at 65,536 / (block x blocks). Launches:
+- scan: 532,480 lanes reading one frontier at i and i - 1, 97 % of the
+  lanes adding (the scan's level 0, one k=14 batch);
+- forest: 266,240 lanes gathering pairs from a 524,288-lane frontier, no
+  mask (the forest's first level).
+
+sqrt: the decomp pre-pass's square root (csrc/mont_mul.cu
+h2v_sqrt_principal), per block size, exponent window and lanes per thread
+(mont_mul.cu SqrtShape), at the main path's 15,360 lanes (15 points x
+1,024 proofs) and at 32 lanes (one warp: one chain's latency).
+
+--parent NAME=DIR (repeatable) adds another version's csrc/ directory as
+a variant, built and timed as it stands, to compare versions on one card
+in one call (unpack one with `git archive <commit>
+halo2_verifier_tpu_torch/csrc` into a gitignored directory such as
+`_t_parent/`).
+
+Prints one JSON line per variant and launch, then the table and the
+card's name and power limit. Needs a CUDA card.
+
+Usage: python3 sweep_kernels.py {point_add,sqrt} [--reps N]
+                                [--parent NAME=DIR ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SCAN_LANES = 532480
+FOREST_LANES = 266240
+FOREST_FRONTIER = 524288
+ACTIVE_SHARE = 0.97
+SQRT_LANES = (15360, 32)
+
+
+class PointAdd:
+    """K2 and K5 per body x (block size, minimum blocks per SM): no cap,
+    then caps of 168 and 128 registers."""
+
+    header = "point.cuh"
+    sources = {"point_add": "point_add.cu", "point_add8": "point_add8.cu"}
+    labels = dict.fromkeys(sources, "point_add_kernel")
+    variants = [(body, shape) for body in ("unrolled", "rolled")
+                for shape in ((64, 1), (64, 6), (64, 8), (128, 1), (128, 3),
+                              (128, 4), (256, 1), (256, 2), (512, 1))]
+    # AddShape's fields, set alike for both limb formats in a variant
+    fields = {"kThreads": r"static constexpr int kThreads = \d+;",
+              "kMinBlocks": r"static constexpr int kMinBlocks = \d+;",
+              "kRolled": r"static constexpr bool kRolled = (?:true|false);"}
+    matches = 2
+
+    @staticmethod
+    def name(v):
+        body, (block, blocks) = v
+        return f"{body}_{block}x{blocks}"
+
+    @staticmethod
+    def values(v):
+        body, (block, blocks) = v
+        return {"kThreads": f"int kThreads = {block};",
+                "kMinBlocks": f"int kMinBlocks = {blocks};",
+                "kRolled": f"bool kRolled = "
+                           f"{'true' if body == 'rolled' else 'false'};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        """{(kernel, launch): (args, plain version)} with seeded canonical
+        operands: the u16 frontier and its 8-bit-limb copy."""
+        from halo2_verifier_tpu_torch.ops import curve, field8 as f8
+
+        rng = np.random.default_rng(5)
+        scan16 = frontier(torch, np, rng, SCAN_LANES, dev)
+        scan8 = tuple(f8.expand16_to8(c) for c in scan16)
+        i = torch.arange(SCAN_LANES, dtype=torch.int32, device=dev)
+        partner = (i - 1).clamp_(min=0)
+        mask = torch.from_numpy(rng.random(SCAN_LANES) < ACTIVE_SHARE)
+        mask = mask.to(dev)
+        mask[0] = False
+        forest = frontier(torch, np, rng, FOREST_FRONTIER, dev)
+        j = torch.arange(FOREST_LANES, dtype=torch.int32, device=dev)
+        iL = (2 * j) % FOREST_FRONTIER
+        iR = (2 * j + 1) % FOREST_FRONTIER
+        work = {("point_add", "scan"): (scan16, scan16, mask, None, partner),
+                ("point_add8", "scan"): (scan8, scan8, mask, None, partner),
+                ("point_add", "forest"): (forest, forest, None, iL, iR)}
+        for (kname, _launch), args in work.items():
+            ops = curve.OPS8 if kname == "point_add8" else curve.OPS16
+            yield (kname, _launch), args, (
+                lambda ops=ops, args=args: ops.masked_add_plain(*args))
+
+    @staticmethod
+    def launch(torch, fn, kname, args):
+        p, q, mask, iL, iR = args
+        rows = 32 if kname == "point_add8" else 16
+        dtype = torch.float32 if kname == "point_add8" else torch.int32
+        b = iL.shape[0] if iL is not None else iR.shape[0]
+        out = torch.empty((3, rows, b), dtype=dtype, device=p[0].device)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        def run():
+            return fn(*(c.data_ptr() for c in p), p[0].shape[1],
+                      *(c.data_ptr() for c in q), q[0].shape[1], ptr(iL),
+                      ptr(iR),
+                      None if mask is None
+                      else mask.view(torch.uint8).data_ptr(),
+                      out[0].data_ptr(), out[1].data_ptr(),
+                      out[2].data_ptr(), b,
+                      torch.cuda.current_stream().cuda_stream)
+        return run, tuple(out)
+
+
+class Sqrt:
+    """The square root per (block size, exponent window, lanes per
+    thread): the block size at a 4-bit window, the window at 64-thread
+    blocks, then two and four lanes per thread (their chains interleaved
+    in one thread)."""
+
+    header = "mont_mul.cu"
+    sources = {"sqrt_principal": "mont_mul.cu"}
+    labels = {"sqrt_principal": "sqrt_principal_kernel"}
+    variants = ([(t, 4, 1) for t in (32, 64, 128, 256)]
+                + [(64, w, 1) for w in (1, 3, 5)]
+                + [(32, 4, 2), (64, 4, 2), (32, 4, 4)])
+    fields = {"kThreads": r"static constexpr int kThreads = \d+;",
+              "kWindow": r"static constexpr int kWindow = \d+;",
+              "kLanes": r"static constexpr int kLanes = \d+;"}
+    matches = 1
+
+    @staticmethod
+    def name(v):
+        return f"t{v[0]}_w{v[1]}_l{v[2]}"
+
+    @staticmethod
+    def values(v):
+        return {"kThreads": f"int kThreads = {v[0]};",
+                "kWindow": f"int kWindow = {v[1]};",
+                "kLanes": f"int kLanes = {v[2]};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        from halo2_verifier_tpu_torch.ops import decomp
+        from halo2_verifier_tpu_torch.ops.constants import P
+        from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
+
+        rng = np.random.default_rng(7)
+        width = SQRT_LANES[0]
+        limbs = rng.integers(0, 1 << 16, size=(16, width), dtype=np.int64)
+        limbs[15] = rng.integers(0, P >> 240, size=width)
+        edge = [0, 1, 2, P - 1, P - 2, (1 << 253) - 1, P - (1 << 32)]
+        limbs[:, :len(edge)] = ints_to_limbs(edge).T
+        xs = torch.from_numpy(limbs.astype(np.int32)).to(dev)
+        for lanes in SQRT_LANES:
+            x = xs[:, :lanes].contiguous()
+            yield ("sqrt_principal", str(lanes)), (x,), (
+                lambda x=x: decomp.y_principal_plain(x))
+
+    @staticmethod
+    def launch(torch, fn, _kname, args):
+        (xs,) = args
+        out = torch.empty_like(xs)
+
+        def run():
+            return fn(xs.data_ptr(), out.data_ptr(), xs.shape[1],
+                      torch.cuda.current_stream().cuda_stream)
+        return run, out
+
+
+def frontier(torch, np, rng, width, dev):
+    from halo2_verifier_tpu_torch.ops.constants import P
+
+    coords = []
+    for _ in range(3):
+        limbs = rng.integers(0, 1 << 16, size=(16, width), dtype=np.int64)
+        limbs[15] = rng.integers(0, P >> 240, size=width)
+        coords.append(torch.from_numpy(limbs.astype(np.int32)).to(dev))
+    return tuple(coords)
+
+
+def make_variant(kind, csrc, root, name, v=None):
+    """Copy csrc into root/name/csrc; with a variant v, set its shape
+    fields in the kind's header (which must hold them as in this
+    checkout)."""
+    dst = os.path.join(root, name, "csrc")
+    shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    if v is not None:
+        path = os.path.join(dst, kind.header)
+        with open(path) as f:
+            text = f.read()
+        for field, pattern in kind.fields.items():
+            text, n = re.subn(pattern, "static constexpr "
+                              + kind.values(v)[field], text)
+            if n != kind.matches:
+                raise RuntimeError(f"{kind.header} no longer holds its "
+                                   f"shape field {field}")
+        with open(path, "w") as f:
+            f.write(text)
+    return dst
+
+
+def build_all(kernels, kind, variants):
+    """kernels.build_report of the kind's sources for every variant, the
+    variants' builds all started together; returns {(variant, kernel):
+    (C entry, report)}."""
+    sources = tuple(sorted(set(kind.sources.values())))
+
+    def one(src_dir):
+        out_dir = os.path.join(os.path.dirname(src_dir), "build")
+        report = kernels.build_report(src_dir, out_dir, sources)
+        return report, kernels.build(src_dir, out_dir, sources)
+
+    with ThreadPoolExecutor(len(variants)) as ex:
+        done = dict(zip(variants, ex.map(one, variants.values())))
+    built = {}
+    for name, (report, libs) in done.items():
+        for kname, src in kind.sources.items():
+            label, rep = next((k, r) for k, r in report[src].items()
+                              if k.startswith(kind.labels[kname]))
+            entry = getattr(kernels.bind(libs[src][0], src), f"h2v_{kname}")
+            built[(name, kname)] = (entry, {"kernel": label, **rep})
+    return built
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=("point_add", "sqrt"))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--parent", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="another version's csrc/ directory (repeatable)")
+    args = ap.parse_args(argv)
+    parents = dict(p.split("=", 1) for p in args.parent)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep_kernels: no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from halo2_verifier_tpu_torch.ops import kernels
+
+    kind = PointAdd if args.kernel == "point_add" else Sqrt
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    root = os.path.join(kernels.BUILD_DIR, "sweep", args.kernel)
+    variants = {name: make_variant(kind, d, root, name)
+                for name, d in parents.items()}
+    for v in kind.variants:
+        variants[kind.name(v)] = make_variant(kind, kernels.CSRC_DIR, root,
+                                              kind.name(v), v)
+    built = build_all(kernels, kind, variants)
+
+    dev = torch.device("cuda")
+    results = []
+    for (kname, launch_name), case, plain in kind.cases(torch, np, dev):
+        want = plain()
+        runs = {}
+        for name in variants:
+            entry, rep = built[(name, kname)]
+            row = {"kernel": kname, "launch": launch_name, "variant": name,
+                   **rep}
+            results.append(row)
+            if rep.get("spill_bytes"):
+                continue
+            fn, out = kind.launch(torch, entry, kname, case)
+
+            def run(fn=fn):
+                rc = fn()
+                if rc != 0:
+                    raise RuntimeError(f"launch failed with CUDA error {rc}")
+            try:
+                run()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # reported in the row, not timed
+                row["launch_error"] = str(e)
+                continue
+            outs = out if isinstance(out, tuple) else (out,)
+            wants = want if isinstance(want, tuple) else (want,)
+            row["equal_to_plain"] = all(torch.equal(o, w)
+                                        for o, w in zip(outs, wants))
+            runs[name] = (run, row)
+        order = list(runs)
+        for rnd, seq in enumerate((order, order[::-1])):
+            for name in seq:
+                run, row = runs[name]
+                run()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(args.reps):
+                    run()
+                stop.record()
+                torch.cuda.synchronize()
+                row[f"ms_round{rnd}"] = start.elapsed_time(stop) / args.reps
+        for run, row in runs.values():
+            row["ms"] = (row["ms_round0"] + row["ms_round1"]) / 2
+        del want
+    for row in results:
+        print(json.dumps({**row, "card": smi}), flush=True)
+    print(f"{'kernel':<27}{'launch':<8}{'variant':<17}{'regs':>5}"
+          f"{'spill':>6}{'sass':>6}{'ms':>9}  equal")
+    for r in results:
+        ms = f"{r['ms']:.4f}" if "ms" in r else "-"
+        print(f"{r['kernel']:<27}{r['launch']:<8}{r['variant']:<17}"
+              f"{str(r.get('registers')):>5}{str(r.get('spill_bytes')):>6}"
+              f"{str(r.get('sass')):>6}{ms:>9}  {r.get('equal_to_plain')}"
+              f"  {r.get('launch_error', '')}")
+    print(smi)
+    bad = [r for r in results
+           if r.get("equal_to_plain") is False or "launch_error" in r]
+    if bad:
+        print(f"{len(bad)} variant(s) failed or differ from the plain "
+              "version", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,7 +16,8 @@ from halo2_verifier_tpu_torch.ops import curve, decomp, field as fm
 from halo2_verifier_tpu_torch.ops import field8 as f8
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
 from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
-from halo2_verifier_tpu_torch.ops.constants import G1_GEN, P, R, fq_edge_triples
+from halo2_verifier_tpu_torch.ops.constants import (
+    G1_GEN, P, R, fq_edge_triples, sqrt_edge_xs)
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -276,14 +277,42 @@ def test_k14_scan_stream_on_card(cuda, backend):
 
 def test_sqrt_kernel_matches_k1_loop_and_plain(cuda):
     pts = _points(512)
-    xs = _limbs_t([p[0] for p in pts] + _field_values(P, 512, 3), cuda)
+    edge = sqrt_edge_xs()
+    xs = _limbs_t([p[0] for p in pts] + edge
+                  + _field_values(P, 512 - len(edge), 3), cuda)
     fused = decomp.y_principal(xs)
     loop = decomp.y_principal_k1(xs)
     plain = decomp.y_principal_plain(xs)
     torch.cuda.synchronize()
     assert torch.equal(fused, plain) and torch.equal(loop, plain)
-    roots = limbs_to_ints(fused.cpu().numpy().T[:512])
-    assert all(p[1] in (r, P - r) for p, r in zip(pts, roots))
+    roots = limbs_to_ints(fused.cpu().numpy().T)
+    assert all(p[1] in (r, P - r) for p, r in zip(pts, roots[:512]))
+    assert roots[512:512 + len(edge)] == [
+        pow((x ** 3 + 3) % P, (P + 1) // 4, P) for x in edge]
+
+
+def test_frontier0_kernel_matches_plain(cuda):
+    """The level-0 frontier kernel on random points, (0, 0) lanes (the
+    identity pad's among them) and repeated indices, against
+    frontier0_plain; one launch, no Montgomery-multiply launch."""
+    pts = _points(1000) + [None] * 23 + [None]  # the last lane: the pad
+    xs = _limbs_t([0 if p is None else p[0] for p in pts], cuda)
+    ys = _limbs_t([0 if p is None else p[1] for p in pts], cuda)
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, len(pts), (8192,), generator=g, dtype=torch.int32)
+    idx[:64] = 7                       # one point many times
+    idx[64:128] = len(pts) - 1         # the identity pad
+    idx[128:160] = 1000 + torch.arange(32, dtype=torch.int32) % 23
+    idx = idx.to(cuda)
+    kernels.reset_launches()
+    got = msm_forest.frontier0(xs, ys, idx)
+    want = msm_forest.frontier0_plain(xs, ys, idx)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(got, want))
+    assert kernels.LAUNCHES["forest_frontier0"] == 1
+    assert kernels.LAUNCHES["mont_mul"] == 0
+    aff = curve.to_affine_host(tuple(c[:, :256] for c in got))
+    assert aff == [pts[i] for i in idx[:256].tolist()]
 
 
 def test_forest_on_card_equals_plain_and_host_msm(cuda):
@@ -294,9 +323,13 @@ def test_forest_on_card_equals_plain_and_host_msm(cuda):
     x_np = ints_to_limbs([p[0] for p in pts])
     y_np = ints_to_limbs([p[1] for p in pts])
     plan = msm_forest.host_plan(s_np, [200, 400])
+    kernels.reset_launches()
     got = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
     want = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
     assert torch.equal(got.cpu(), want)
+    # one frontier launch and the point adds; no Montgomery multiply
+    assert kernels.LAUNCHES["forest_frontier0"] == 1
+    assert kernels.LAUNCHES["mont_mul"] == 0
     assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
         hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
 
@@ -315,4 +348,5 @@ def test_k14_stream_on_card(cuda):
     assert res[0].ok
     assert not res[1].ok and res[1].failed_indices == [5]
     assert all(kernels.LAUNCHES[k] > 0
-               for k in ("mont_mul", "sqrt_principal", "point_add"))
+               for k in ("forest_frontier0", "sqrt_principal", "point_add"))
+    assert kernels.LAUNCHES["mont_mul"] == 0

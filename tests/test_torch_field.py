@@ -146,6 +146,10 @@ def _words(v):
     return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
 
 
+def _limbs29(v):
+    return [(v >> (29 * i)) & ((1 << 29) - 1) for i in range(9)]
+
+
 def test_kernel_constants_match_python():
     """The CUDA sources hard-code the moduli and the Fq constants of the
     square-root kernel; they must equal the Python-derived values."""
@@ -156,12 +160,20 @@ def test_kernel_constants_match_python():
     assert _cuda_words(fcuh, "MOD") == _words(P) + _words(R)
     assert _cuda_words(fcuh, "N0INV") == [
         (-pow(P, -1, 1 << 32)) % (1 << 32), (-pow(R, -1, 1 << 32)) % (1 << 32)]
-    assert _cuda_words(mcu, "R2_FQ") == _words(fm.FQ.mont_r2)
-    assert _cuda_words(mcu, "ONE_FQ") == _words(fm.FQ.mont_r)
-    assert _cuda_words(mcu, "B_FQ") == _words(3 * fm.FQ.mont_r % P)
+    with open(os.path.join(kernels.CSRC_DIR, "frontier.cu")) as f:
+        fcu = f.read()
+    assert _cuda_words(fcu, "R2_FQ") == _words(fm.FQ.mont_r2)
+    assert _cuda_words(fcu, "ONE_FQ") == _words(fm.FQ.mont_r)
     assert _cuda_words(mcu, "SQRT_EXP") == _words((P + 1) // 4)
     assert int(re.search(r"kSqrtBits = (\d+);", mcu).group(1)) == (
         ((P + 1) // 4).bit_length())
+    # the square root's radix-2^29 form, Montgomery radix R' = 2^261
+    r29 = (1 << 261) % P
+    assert _cuda_words(mcu, "Q29") == _limbs29(P)
+    assert _cuda_words(mcu, "R2_29") == _limbs29(r29 * r29 % P)
+    assert _cuda_words(mcu, "B3_29") == _limbs29(3 * r29 % P)
+    assert int(re.search(r"kQInv29 = 0x([0-9a-f]+)u;", mcu).group(1),
+               16) == (-pow(P, -1, 1 << 29)) % (1 << 29)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -172,6 +184,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         kernels.mont_mul(a, a, 0)
     with pytest.raises(ValueError):
         kernels.point_add((a, a, a), (a, a, a))
+    with pytest.raises(ValueError):
+        kernels.sqrt_principal(a)
+    with pytest.raises(ValueError):
+        kernels.forest_frontier0(a, a, torch.zeros(4, dtype=torch.int32))
 
 
 

@@ -119,3 +119,32 @@ def test_plan_index_check_rejects_out_of_range(pts20):
     with pytest.raises(ValueError):
         msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
 
+
+
+@pytest.mark.parametrize("case", ["points", "identities_and_pad"])
+def test_frontier0_plain_equals_reference(case, pts20):
+    """The level-0 frontier kernel's plain version equals the reference's
+    _convert_points + _gather0 on the plan of the window-totals test:
+    repeated indices, (0, 0) source lanes and the identity pad's index."""
+    import jax.numpy as jnp
+
+    pts = pts20 if case == "points" else [None] * 4 + pts20[4:]
+    s_np, x_np, y_np = _limbs(_random_scalars(20, 3), pts)
+    plan = msm_forest.host_plan(s_np, [8, 12])
+    idx0 = plan["point_idx0"]
+    assert (idx0 == plan["n_pad"] - 1).any()  # the identity pad is gathered
+    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    want = jforest._gather0(
+        jforest._convert_points(jnp.asarray(xs), jnp.asarray(ys)),
+        jnp.asarray(idx0))
+    args = (torch.from_numpy(xs.view(np.int32)),
+            torch.from_numpy(ys.view(np.int32)), torch.from_numpy(idx0))
+    got = msm_forest.frontier0_plain(*args)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(),
+                                      np.asarray(w).astype(np.int32))
+    # frontier0 takes the plain version for CPU tensors
+    again = msm_forest.frontier0(*args)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of halo2_verifier_tpu_torch,
-and not chip_smoke.py, imports jax or anything of the JAX package
-halo2_verifier_tpu (checked on the source, so it holds on machines where
-jax is absent)."""
+and neither root script (chip_smoke.py, sweep_kernels.py), imports jax or
+anything of the JAX package halo2_verifier_tpu (checked on the source, so
+it holds on machines where jax is absent)."""
 
 import ast
 import os
@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "halo2_verifier_tpu")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, name)
+           for name in ("chip_smoke.py", "sweep_kernels.py")]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
