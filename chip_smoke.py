@@ -25,7 +25,13 @@ Phases, one output line each (JSON unless noted):
    lanes on the point add's cases and edge triples; across formats, 2P
    against P + P as
    affine points and every 8-bit-limb output against the re-limbed
-   16-bit-limb kernel's; the 8-bit-limb outputs' range;
+   16-bit-limb kernel's; the 8-bit-limb outputs' range; the device
+   pairing's tower kernels (Fq add/sub/neg, the Fq12 linear maps, the
+   Fermat inversion) at the pairing's widths and at 16,384 lanes, with
+   edge operands; the device pairing check: Miller lanes against the
+   host oracle, good and tampered verdicts against the host pairing, its
+   time beside the host pairing's, launches per check and the profiler's
+   count of device kernels in one check;
 4. one forest MSM and one scan MSM per limb backend of a main-path batch's
    size (16,640 random scalars and points in groups of 1,024 and 15,616)
    against the exact host MSM, the f8 window totals bit-equal to the
@@ -41,10 +47,17 @@ Phases, one output line each (JSON unless noted):
    for the forest and the scan, a 64-proof batch with one public input
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
-   device, in either package);
+   device, in either package); the forest stream once more with
+   pairing="device" (8 batches; K1 and the tower kernels T1-T3 join the
+   forest's kernels), its tampered 64-proof batch, and strategy="single"
+   with the device pairing on 8 proofs, one tampered (only K1 and T1-T3
+   launch: the single strategy's MSMs run on the host);
 6. kernel timings on the arguments of each kernel's widest launch on its
-   path (the wrappers keep them), beside the plain version and the bound,
-   and the square root also at 32 lanes (one warp: one chain's latency);
+   path (the wrappers keep them), each the profiler's device time per
+   launch (CUDA events around 20 calls beside it), beside the plain
+   version and the bound,
+   and the square root also at 32 lanes (one warp: one chain's latency),
+   K1 also at the device pairing's widest launch;
    the whole device stage of phase 4's batch-sized forest and scans; the
    device busy share of a profiled stream on the warm verifier.
 
@@ -77,6 +90,11 @@ SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
 POINT_DOUBLE_WIDTH = 524288
 MONT_MUL8_WIDTHS = (16384, SCAN_LANES)
 SCAN_BATCHES = {"u16": 8, "f8": 4}
+TOWER_WIDTHS = (1, 2, 16384)         # the pairing's widths (two live pairs)
+DEVICE_PAIRING_BATCHES = 8            # the paced rate spans 5 intervals
+SINGLE_PROOFS = 8
+SINGLE_TAMPER_INDEX = 5
+PAIRING_REPS = 5                     # checks timed, median reported
 
 # Bound model: the least time of an operation count is the longest of the
 # SM's pipes that must run it (NVIDIA CUDA C++ Programming Guide,
@@ -97,7 +115,12 @@ SCAN_BATCHES = {"u16": 8, "f8": 4}
 # per word (8) and store with a mask and a shift per word (16); 8-bit
 # limbs in float32 load with one byte_perm per word (8) and store with one
 # per byte (32), their float halves and bytes made by 32 FP32 operations
-# each way (csrc/field.cuh Limbs8).
+# each way (csrc/field.cuh Limbs8). An exact linear map with small integer
+# coefficients: per nonzero coefficient one element times a small scalar
+# accumulated (8 word products of 2 multiply-adds), per output one
+# reduction (a quotient's product with the modulus, 16 multiply-adds, and
+# a conditional subtract); an exponentiation by a constant: the shortest
+# fixed-window chain for it (ops/decomp.py window_chain_counts).
 IMAD_PER_SM_CLK = 64
 ALU_PER_SM_CLK = 64
 ISSUE_PER_SM_CLK = 128
@@ -114,12 +137,23 @@ MONT_MUL = (128 * 2 + 8, 16, 0)
 # on the diagonal), 64 + 8 for the reduction
 MONT_SQR = ((36 + 64) * 2 + 8, 16, 0)
 ADD_SUB = (0, 24, 0)
+SCALAR_MAD = (8 * 2, 0, 0)
+LINMAP_REDUCE = (8 * 2, 16, 0)
 LOAD16, STORE16 = (0, 8, 0), (0, 16, 0)
 LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
 # doubling (RCB15 alg. 9): 8 products, 14 adds/subtracts, 3 loads and 3
 # stores
 OPS_POINT_DOUBLE = ops((8, MONT_MUL), (14, ADD_SUB), (3, LOAD16),
                        (3, STORE16))
+
+
+def inv_chain_counts(e):
+    """(squarings, multiplies) of the fixed-window chain for e with the
+    fewest multiply-adds, over windows of 1 to 8 bits."""
+    from halo2_verifier_tpu_torch.ops.decomp import window_chain_counts
+
+    return min((window_chain_counts(e, w) for w in range(1, 9)),
+               key=lambda c: ops((c[0], MONT_SQR), (c[1], MONT_MUL))[0])
 
 
 def ops_sqrt(squarings, multiplies):
@@ -193,6 +227,33 @@ def time_ms(torch, fn, reps, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, kernel, reps=20):
+    """Mean device milliseconds per launch of the CUDA function whose name
+    holds `kernel`, over `reps` back-to-back calls of fn, from the
+    profiler's kernel events (CUDA events around launches this short time
+    the host's dispatch, not the kernel); None where the profiler shows no
+    such launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(ev) / len(ev) / 1e3 if ev else None
+
+
+def sig(x):
+    """x to four significant digits (a bound of a few lanes' work is
+    far below 0.0001 ms)."""
+    return float(f"{x:.4g}")
 
 
 def max_abs_err(torch, got, want):
@@ -671,6 +732,223 @@ def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
              "launches": record["launches"]}, record)
 
 
+def tower_operands(np, rng, modulus, ints_to_limbs, width):
+    """(a, b): (16, width) uint32 limbs of canonical values, the edge
+    values (0, 1, p - 1, runs of one-words, the FOLD_EDGE pairs against
+    each other) in the first lanes, random ones after."""
+    from halo2_verifier_tpu_torch.ops.constants import FOLD_EDGE, FQ_EDGE
+
+    edge_a = [v % modulus for v in FQ_EDGE + [x for x, _ in FOLD_EDGE]]
+    edge_b = [v % modulus for v in FQ_EDGE[::-1] + [y for _, y in FOLD_EDGE]]
+    a = random_field(np, rng, modulus, width)
+    b = random_field(np, rng, modulus, width)
+    n = min(width, len(edge_a))
+    a[:n] = ints_to_limbs(edge_a[:n])
+    b[:n] = ints_to_limbs(edge_b[:n])
+    return a.T.copy(), b.T.copy()
+
+
+def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
+    """The device pairing's tower kernels against their plain versions,
+    bit for bit, at the pairing's widths (1 and 2 lanes: two live pairs)
+    and at 16,384 lanes: T1 add, sub and neg (operand a a column slice of
+    a wider tensor, read at its own row stride), T2 on the three Fq12
+    maps, T3 for Fq and Fr (0 -> 0 in the first lane). Each kernel also
+    timed at 16,384 lanes beside its plain version and its bound."""
+    rng = np.random.default_rng(12)
+    checked, worst, wide = [], 0, {}
+
+    def up(x):
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+    a_np, b_np = tower_operands(np, rng, fm.FQ.modulus, ints_to_limbs,
+                                max(TOWER_WIDTHS))
+    A2 = up(np.concatenate([a_np, b_np], axis=1))
+    for w in TOWER_WIDTHS:
+        a, b = A2[:, :w], up(b_np[:, :w])
+        for op in (kernels.FQ_ADD, kernels.FQ_SUB, kernels.FQ_NEG):
+            args = (a, None if op == kernels.FQ_NEG else b, op)
+            plain, _, _ = kernel_case("fq_addsub", args, None, fm, None,
+                                      None)
+            err = max_abs_err(torch, kernels.fq_addsub(*args), plain())
+            worst = max(worst, err)
+            checked.append(["fq_addsub", op, w, err])
+    wide["fq_addsub"] = (A2[:, :max(TOWER_WIDTHS)],
+                         up(b_np), kernels.FQ_ADD)
+    for name in ("_FQ12_MA", "_FQ12_MB", "_FQ12_MC"):
+        M = getattr(tp, name)
+        k = M.shape[1]
+        vals = np.concatenate([tower_operands(
+            np, rng, fm.FQ.modulus, ints_to_limbs, max(TOWER_WIDTHS))[0]
+            for _ in range(k)], axis=1)
+        X = up(vals).reshape(16, k, max(TOWER_WIDTHS))
+        for w in TOWER_WIDTHS:
+            args = (X[:, :, :w].contiguous(), tp._map_tensor(M, dev))
+            plain, _, _ = kernel_case("fq_linmap", args, None, fm, None,
+                                      None)
+            err = max_abs_err(torch, kernels.fq_linmap(*args), plain())
+            worst = max(worst, err)
+            checked.append(["fq_linmap", name, w, err])
+        if name == "_FQ12_MC":
+            wide["fq_linmap"] = args
+    for spec in (fm.FQ, fm.FR):
+        x = up(tower_operands(np, rng, spec.modulus, ints_to_limbs,
+                              max(TOWER_WIDTHS))[0])
+        for w in TOWER_WIDTHS:
+            args = (x[:, :w].contiguous(), spec.kernel_id)
+            plain, _, _ = kernel_case("fq_inv", args, None, fm, None, None)
+            got = fm.inv_mont(args[0], spec)  # the entry that dispatches
+            err = max(max_abs_err(torch, got, plain()),
+                      int(got[:, 0].abs().max()))  # inv(0) = 0
+            worst = max(worst, err)
+            checked.append(["fq_inv", spec.kernel_id, w, err])
+        if spec is fm.FQ:
+            wide["fq_inv"] = args
+    timings = {}
+    for name, args in wide.items():
+        fn = getattr(kernels, name)
+        plain, nbytes, counts = kernel_case(name, args, None, fm, None, None)
+        bound_ms, bound_by = card.bound(nbytes, counts)
+        ms, ms_basis, events_ms = kernel_ms(torch, name, lambda: fn(*args))
+        timings[name] = {
+            "lanes": int(args[0].shape[-1]), "ms": sig(ms),
+            "ms_basis": ms_basis, "events_ms": round(events_ms, 4),
+            "plain_ms": round(time_ms(torch, plain, reps=1), 4),
+            "bound_ms": sig(bound_ms), "bound_by": bound_by,
+            "share": round(bound_ms / ms, 4), "bytes": nbytes,
+            "operations_by_pipe": dict(zip(("imad", "alu", "fp32"), counts))}
+    return {"phase": "parity_tower", "tolerance": 0, "widths":
+            list(TOWER_WIDTHS), "max_abs_err": worst, "checked": checked,
+            "timing_16384_lanes": timings}
+
+
+def pairing_lanes(torch, np, tp, pairs, dev):
+    g1 = np.stack([tp.mont_cols([p[i] for p, _ in pairs]) for i in (0, 1)])
+    g2 = np.stack([tp.mont_cols([q[i][j] for _, q in pairs])
+                   for i in (0, 1) for j in (0, 1)])
+    return torch.from_numpy(g1).to(dev), torch.from_numpy(g2).to(dev)
+
+
+def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
+    """The device pairing check on the card: the Miller lanes of three
+    pairs equal the host oracle's (hostpairing.miller_loop), the
+    bilinearity verdicts (good and tampered) the host pairing's; the time
+    of one check (median of PAIRING_REPS) beside the host pairing's on
+    the same pairs; launches per check by kernel; the profiler's count of
+    device kernels and copies in one check and their device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from halo2_verifier_tpu_torch.ops.constants import G1_GEN, G2_GEN
+
+    def g1(k):
+        return hc.g1_mul(G1_GEN, k)
+
+    def g2(k):
+        return hc.g2_mul(G2_GEN, k)
+
+    pairs = [(g1(3), g2(5)), (g1(7), g2(11)), (g1(1), g2(1))]
+    lanes = tp.miller_lanes(*pairing_lanes(torch, np, tp, pairs, dev))
+    if any(tp.fq12_from_device(lanes, lane=i) != hp.miller_loop(p, q)
+           for i, (p, q) in enumerate(pairs)):
+        raise AssertionError("pairing: Miller lanes differ from the host's")
+    good = [(g1(6), g2(13)), (hc.g1_neg(g1(78)), G2_GEN)]
+    bad = [good[0], (hc.g1_neg(g1(79)), G2_GEN)]
+    verdicts = {name: (tp.pairing_check_device(pairs_, dev),
+                       hp.pairing_check(pairs_))
+                for name, pairs_ in (("good", good), ("bad", bad))}
+    if verdicts != {"good": (True, True), "bad": (False, False)}:
+        raise AssertionError(f"pairing: verdicts {verdicts}")
+
+    def median_s(fn):
+        times = []
+        for _ in range(PAIRING_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2], times
+
+    dev_s, dev_all = median_s(lambda: tp.pairing_check_device(good, dev))
+    host_s, host_all = median_s(lambda: hp.pairing_check(good))
+    kernels.reset_launches()
+    tp.pairing_check_device(good, dev)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp.pairing_check_device(good, dev)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    busy = device_times(prof)
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    # device time per launch of the package's kernels in this check (CUDA
+    # events around back-to-back launches this small time the host's
+    # dispatch, not the kernel)
+    per_launch = {}
+    for name, kernel in (("mont_mul", "mont_mul_kernel<0>"),
+                         ("fq_addsub", "fq_addsub_kernel"),
+                         ("fq_linmap", "fq_linmap_kernel"),
+                         ("fq_inv", "fq_inv_kernel<0>")):
+        ev = [e for e in events if kernel in e.name]
+        if ev:
+            per_launch[name] = round(
+                sum(e.time_range.elapsed_us() for e in ev) / len(ev), 3)
+    return {"phase": "pairing", "miller_lanes_equal_host": True,
+            "verdicts_device_host": verdicts, "live_pairs": len(good),
+            "check_ms_median": round(dev_s * 1e3, 3),
+            "check_ms_all": [round(t * 1e3, 3) for t in dev_all],
+            "host_pairing_ms_median": round(host_s * 1e3, 3),
+            "host_pairing_ms_all": [round(t * 1e3, 3) for t in host_all],
+            "device_over_host": round(dev_s / host_s, 2),
+            "launches_per_check": launches,
+            "package_kernel_launches_per_check": sum(launches.values()),
+            "profiler_device_kernels_per_check": len(events) - len(copies),
+            "profiler_device_copies_per_check": len(copies),
+            "profiler_device_busy_ms_per_check":
+                round(sum(busy.values()) / 1e3, 3) if busy else None,
+            "profiler_device_us_per_launch": per_launch,
+            "device_ms_by_name": {k[:60]: round(v / 1e3, 3)
+                                  for k, v in top}}
+
+
+def phase_single(torch, kernels, BatchVerifier, fixture):
+    """strategy="single" with the device pairing: one check per proof on
+    SINGLE_PROOFS proofs, one with a public input + 1, which must fail at
+    its index; the counts are set to 0 just before and read just after,
+    and only K1 and T1-T3 may launch (the single strategy's MSMs run on
+    the host, as in the reference's SingleStrategy). The host pairing's
+    verdict and time on the same batch beside it."""
+    from halo2_verifier_tpu_torch.ops.constants import R
+
+    params, vk, items = fixture
+    batch = list(items[:SINGLE_PROOFS])
+    p, inst = batch[SINGLE_TAMPER_INDEX]
+    batch[SINGLE_TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
+    expect = ("mont_mul", "fq_addsub", "fq_linmap", "fq_inv")
+    out_ = {"phase": "single_device_pairing", "proofs": SINGLE_PROOFS}
+    for pairing in ("device", "host"):
+        bv = BatchVerifier(params, vk, strategy="single", pairing=pairing)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = bv.verify(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if res.ok or res.failed_indices != [SINGLE_TAMPER_INDEX]:
+            raise AssertionError(f"single_device_pairing ({pairing}): "
+                                 f"ok={res.ok} failed={res.failed_indices}")
+        for name, n in launches.items():
+            want = pairing == "device" and name in expect
+            if want != (n > 0):
+                raise AssertionError(f"single_device_pairing ({pairing}): "
+                                     f"kernel {name} launched {n} times")
+        out_[pairing] = {"failed_indices": res.failed_indices,
+                         "seconds": round(dt, 3),
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+    return out_
+
+
 # name, source, TPU kernel it replaces, the path whose run gives its row
 KERNELS = (
     ("forest_frontier0", "halo2_verifier_tpu_torch/csrc/frontier.cu",
@@ -691,7 +969,43 @@ KERNELS = (
     ("point_add8", "halo2_verifier_tpu_torch/csrc/point_add8.cu",
      "halo2_verifier_tpu/ops/lmcurve.py:73 (instance OPS8, :213)",
      "scan_path_f8"),
+    # the device pairing's tower: no Pallas kernel in the reference (XLA
+    # fuses its pairing program); the code each kernel replaces
+    ("fq_addsub", "halo2_verifier_tpu_torch/csrc/tower.cu",
+     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:44 _fadd, :48 "
+     "_fsub, :52 _fneg", "device_pairing_path"),
+    ("fq_linmap", "halo2_verifier_tpu_torch/csrc/tower.cu",
+     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:245 "
+     "_linear_combine with :211 _reduce_mod_p", "device_pairing_path"),
+    ("fq_inv", "halo2_verifier_tpu_torch/csrc/tower.cu",
+     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:56 _finv "
+     "(halo2_verifier_tpu/ops/lmfield.py:474 inv_mont)",
+     "device_pairing_path"),
 )
+
+
+# the CUDA function each wrapper launches (a substring of the profiler's
+# kernel name)
+KERNEL_FN = {
+    "mont_mul": "mont_mul_kernel", "mont_mul8": "mont_mul8_kernel",
+    "point_add": "point_add_kernel", "point_add8": "point_add_kernel",
+    "point_double": "point_double_kernel",
+    "sqrt_principal": "sqrt_principal_kernel",
+    "forest_frontier0": "frontier0_kernel",
+    "fq_addsub": "fq_addsub_kernel", "fq_linmap": "fq_linmap_kernel",
+    "fq_inv": "fq_inv_kernel",
+}
+
+
+def kernel_ms(torch, name, fn):
+    """(ms, basis, CUDA-event ms) of one launch of kernel `name` by fn:
+    the profiler's device time per launch, and beside it the CUDA events
+    around 20 back-to-back calls (host dispatch included); the events'
+    time stands in only where the profiler shows no launch."""
+    ev_ms = time_ms(torch, fn, reps=20)
+    ms = device_ms(torch, fn, KERNEL_FN[name])
+    return (ev_ms, "cuda_events", ev_ms) if ms is None else (
+        ms, "profiler_device_time", ev_ms)
 
 
 def kernel_case(name, args, curve, fm, f8, decomp):
@@ -734,6 +1048,46 @@ def kernel_case(name, args, curve, fm, f8, decomp):
         return plain, nbytes, ops((12 * active, MONT_MUL),
                                   (27 * active, ADD_SUB), (3 * active, load),
                                   (3 * b, load), (3 * b, store))
+    if name == "fq_addsub":
+        a, bb, op = args
+        body = {0: fm.add_body, 1: fm.sub_body}
+        if op == 2:
+            def plain():
+                return fm.neg_body(a.long(), fm.FQ).int()
+        else:
+            def plain():
+                return body[op](a.long(), bb.long(), fm.FQ).int()
+        b = a.shape[1]
+        n_in = 1 if op == 2 else 2
+        return plain, (n_in + 1) * LIMB_BYTES * b, ops(
+            (b, ADD_SUB), (n_in * b, LOAD16), (b, STORE16))
+    if name == "fq_linmap":
+        from halo2_verifier_tpu_torch.ops.pairing import linear_combine_plain
+
+        x, m = args
+        M = m.cpu().numpy()
+        k, b = x.shape[1], x.shape[2]
+        n_out = M.shape[0]
+        # the function, not the kernel's schedule (|m[o, j]| modular adds
+        # per coefficient): per lane a scalar multiply-accumulate for each
+        # nonzero coefficient, a reduction per output, each operand loaded
+        # once, each output stored once
+        return (lambda: linear_combine_plain(x, M),
+                LIMB_BYTES * (k + n_out) * b + 4 * M.size,
+                ops((int((M != 0).sum()) * b, SCALAR_MAD),
+                    (n_out * b, LINMAP_REDUCE), (k * b, LOAD16),
+                    (n_out * b, STORE16)))
+    if name == "fq_inv":
+        a, field_id = args
+        spec = fm.FQ if field_id == 0 else fm.FR
+        # the shortest fixed-window chain for N - 2 (the kernel runs the
+        # bit-by-bit ladder: 253 squarings, 109 products for Fq)
+        squarings, multiplies = inv_chain_counts(spec.modulus - 2)
+        b = a.shape[1]
+        return (lambda: fm.inv_mont_body(a.long(), spec).int(),
+                2 * LIMB_BYTES * b,
+                ops((b * squarings, MONT_SQR), (b * multiplies, MONT_MUL),
+                    (b, LOAD16), (b, STORE16)))
     if name == "point_double":
         (p,) = args
         b = p[0].shape[1]
@@ -763,16 +1117,16 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
     fn = getattr(kernels, name)
     plain, nbytes, counts = kernel_case(name, args, curve, fm, f8, decomp)
     err = max_abs_err(torch, fn(*args), plain())
-    ms = time_ms(torch, lambda: fn(*args), reps=20)
+    ms, ms_basis, events_ms = kernel_ms(torch, name, lambda: fn(*args))
     plain_ms = time_ms(torch, plain,
-                       reps=1 if name == "sqrt_principal" else 3)
+                       reps=1 if name in ("sqrt_principal", "fq_inv") else 3)
     bound_ms, bound_by = card.bound(nbytes, counts)
     n = record["batches"]
     extra = {}
     if name == "sqrt_principal":
         # one warp alone: how far the launch is from one chain's latency
         one_warp = args[0][:, :32].contiguous()
-        ms32 = time_ms(torch, lambda: fn(one_warp), reps=20)
+        ms32, _, _ = kernel_ms(torch, name, lambda: fn(one_warp))
         squarings, multiplies = decomp.sqrt_chain_counts()
         extra = {"ms_32_lanes": round(ms32, 4),
                  "ms_over_ms_32_lanes": round(ms / ms32, 3),
@@ -782,9 +1136,11 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
     return {
         "launches": record["launches"][name],
         "launches_per_batch": round(record["launches"][name] / n, 2),
-        "lanes": b, "max_abs_err": err, "ms": round(ms, 4),
-        "plain_ms": round(plain_ms, 4), "bound_ms": round(bound_ms, 4),
-        "bound_by": bound_by, "library_ms": None,
+        "lanes": b, "max_abs_err": err, "ms": sig(ms), "ms_basis": ms_basis,
+        "events_ms": round(events_ms, 4),
+        "plain_ms": round(plain_ms, 4), "bound_ms": sig(bound_ms),
+        "bound_by": bound_by, "share": round(bound_ms / ms, 4),
+        "library_ms": None,
         "bytes": nbytes, "operations": sum(counts),
         "operations_by_pipe": dict(zip(("imad", "alu", "fp32"), counts)),
         "lanes_per_batch": round(record["lanes"][name] / n),
@@ -793,20 +1149,26 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
 
 
 def phase_timings(torch, card, kernels, records, curve, fm, f8, decomp):
-    """The kernels' rows, each on its own path's record, and the
-    16-bit-limb point add once more at the scan path's widest launch, to
-    stand beside the 8-bit-limb one on the same work."""
+    """The kernels' rows, each on its own path's record; the 16-bit-limb
+    point add once more at the scan path's widest launch, to stand beside
+    the 8-bit-limb one on the same work, and K1 at the device pairing's
+    widest launch."""
     rows = []
     for name, src, replaces, path in KERNELS:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "path": path,
                      **time_kernel(torch, card, kernels, name, records[path],
                                    curve, fm, f8, decomp)})
-    beside = {"phase": "timing_scan_path_u16_point_add", "name": "point_add",
-              "path": "scan_path_u16",
-              **time_kernel(torch, card, kernels, "point_add",
-                            records["scan_path_u16"], curve, fm, f8,
-                            decomp)}
+    beside = [{"phase": "timing_scan_path_u16_point_add",
+               "name": "point_add", "path": "scan_path_u16",
+               **time_kernel(torch, card, kernels, "point_add",
+                             records["scan_path_u16"], curve, fm, f8,
+                             decomp)},
+              {"phase": "timing_device_pairing_path_mont_mul",
+               "name": "mont_mul", "path": "device_pairing_path",
+               **time_kernel(torch, card, kernels, "mont_mul",
+                             records["device_pairing_path"], curve, fm, f8,
+                             decomp)}]
     return rows, beside
 
 
@@ -933,8 +1295,8 @@ def run(torch, card, dev, n_batches, make_verifier):
 
     from halo2_verifier_tpu_torch import weights
     from halo2_verifier_tpu_torch.ops import (
-        curve, decomp, field as fm, field8 as f8, hostcurve as hc, kernels,
-        msm, msm_forest, msm_scan)
+        curve, decomp, field as fm, field8 as f8, hostcurve as hc,
+        hostpairing as hp, kernels, msm, msm_forest, msm_scan, pairing)
     from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 
     def emit(res):
@@ -960,6 +1322,9 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(phase_k4(torch, np, fm, f8, ints_to_limbs, dev))
     emit(phase_k5(torch, np, hc, fm, f8, curve, ints_to_limbs, dev,
                   SCAN_LANES))
+    emit(phase_tower(torch, np, card, fm, pairing, kernels, ints_to_limbs,
+                     dev))
+    emit(phase_pairing(torch, np, card, pairing, hp, hc, kernels, dev))
     forest_res, forest_inputs, case = phase_forest(
         torch, np, hc, msm_forest, msm, ints_to_limbs, dev)
     if not emit(forest_res)["equal_to_host_msm"]:
@@ -995,6 +1360,15 @@ def run(torch, card, dev, n_batches, make_verifier):
     double_res, records["double_path"] = phase_double_path(
         torch, np, hc, fm, curve, kernels, ints_to_limbs, dev)
     emit(double_res)
+    res, records["device_pairing_path"], _bv = phase_stream(
+        torch, kernels, fixture, make_verifier, DEVICE_PAIRING_BATCHES,
+        "device_pairing_path",
+        ("forest_frontier0", "point_add", "sqrt_principal", "mont_mul",
+         "fq_addsub", "fq_linmap", "fq_inv"), pairing="device")
+    emit(res)
+    emit(phase_tamper(torch, kernels, make_verifier, fixture,
+                      "tampered_batch_device_pairing", pairing="device"))
+    emit(phase_single(torch, kernels, make_verifier, fixture))
 
     rows, beside = phase_timings(torch, card, kernels, records, curve, fm,
                                  f8, decomp)
@@ -1004,7 +1378,8 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(phase_profile(torch, bv, fixture, n_batches))
     for r in rows:
         emit({"phase": f"timing_{r['name']}", **r})
-    emit(beside)
+    for r in beside:
+        emit(r)
     out({"phase": "done", "seconds": round(time.time() - t_start, 3), **tag})
     out(card.smi)
     out({"kernels": rows})

@@ -72,16 +72,21 @@ def pow_window(a, e: int, w: int, mul):
     return r
 
 
+def window_chain_counts(e: int, w: int):
+    """(squarings, multiplies) of pow_window(a, e, w): the table's one
+    squaring and 2^w - 3 products, then w squarings per lower digit and a
+    product per nonzero one."""
+    digits = window_digits(e, w)
+    return ((1 if w > 1 else 0) + w * (len(digits) - 1),
+            max((1 << w) - 3, 0) + sum(1 for d in digits[1:] if d))
+
+
 def sqrt_chain_counts(w: int = SQRT_WINDOW):
     """(squarings, multiplies) of the square-root kernel per lane: x R'
-    (one product), x^2, x^3, the window's table and digits, and one
-    product out of Montgomery form."""
-    digits = window_digits(SQRT_EXP, w)
-    table_sq = 1 if w > 1 else 0
-    table_mul = max((1 << w) - 3, 0)
-    squarings = 1 + table_sq + w * (len(digits) - 1)
-    multiplies = 3 + table_mul + sum(1 for d in digits[1:] if d)
-    return squarings, multiplies
+    (one product), x^2, x^3, the window's chain, and one product out of
+    Montgomery form."""
+    squarings, multiplies = window_chain_counts(SQRT_EXP, w)
+    return 1 + squarings, 3 + multiplies
 
 
 def _y_chain(xs, mul, add):

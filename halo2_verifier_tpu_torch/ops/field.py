@@ -7,12 +7,15 @@ field elements is a (NLIMBS=16, B) tensor of 16-bit limbs, limb axis
 leading, stored in int32; Montgomery radix R = 2^256.
 
 Two parts, as for every kernel of this package:
-- the `*_body` functions are plain torch on int64 tensors. They mirror the
-  reference's uint32 bodies column for column; int64 because torch on the
-  CPU has no add, sub or shift for uint32. They run on the CPU (tests), and
-  on the card only where a caller asks for them explicitly as a yardstick;
+- the `*_body` functions are plain torch on int64 tensors. They follow the
+  reference's uint32 bodies step for step; int64 because torch on the CPU
+  has no add, sub or shift for uint32 (and `mont_mul_body` sums whole
+  64-bit columns where the reference splits each product in halves). They
+  run on the CPU (tests), and on the card only where a caller asks for
+  them explicitly as a yardstick;
 - `mont_mul` launches the Hopper Montgomery-multiply kernel
-  (csrc/mont_mul.cu) for CUDA tensors and uses the body for CPU tensors.
+  (csrc/mont_mul.cu) for CUDA tensors and uses the body for CPU tensors;
+  `inv_mont` likewise the Fermat inversion kernel (csrc/tower.cu).
 
 On canonical inputs (below N) every body returns the canonical result,
 as the reference's do, so the kernel (a 32-bit-word CIOS product) equals
@@ -22,7 +25,7 @@ twice, and where the fold's top limb comes out exactly 2^16 the folded
 limbs stand for m + 2^256. That needs m below 2^241, so the result
 (T + mN)/2^256 + N is below 2N and the final conditional subtract still
 lands on the canonical value. tests/test_torch_field.py holds three such
-inputs.
+inputs against the body here.
 """
 
 from __future__ import annotations
@@ -100,22 +103,19 @@ def carry_fold2(x):
 
 def carry_prop(x):
     """Exact carry propagation to canonical 16-bit limbs (the reference's
-    static form): two folds bring every row to <= 2^16, then a
-    Kogge-Stone generate/propagate scan resolves the +1 ripple. Carries
-    out of the top row are dropped."""
+    carry_prop_static, bit for bit): two folds bring every row to <= 2^16,
+    so each row passes an incoming +1 on (low limb 2^16 - 1) or stops it.
+    The carry into row k is then the carry out of the last row below k
+    that stops, found by a running maximum of row indices. Carries out of
+    the top row are dropped."""
     x = carry_fold2(x)
     r = x & MASK
-    g = _shift_rows_down(x >> LIMB_BITS)
-    p = _shift_rows_down((r == MASK).to(x.dtype))
-    rows = x.shape[0]
-    d = 1
-    while d < rows:
-        zg = torch.cat([torch.zeros_like(g[:d]), g[:-d]])
-        zp = torch.cat([torch.zeros_like(p[:d]), p[:-d]])
-        g = g | (p & zg)
-        p = p & zp
-        d *= 2
-    return (r + g) & MASK
+    rows = torch.arange(x.shape[0], device=x.device).view(
+        (-1,) + (1,) * (x.dim() - 1))
+    stop = torch.where(r == MASK, -1, rows).cummax(dim=0).values
+    below = _shift_rows_down(stop + 1) - 1  # -1: no stopping row below
+    carry = (x >> LIMB_BITS).gather(0, below.clamp(min=0)) * (below >= 0)
+    return (r + carry) & MASK
 
 
 def _with_overflow_row(x):
@@ -146,49 +146,50 @@ def neg_body(a, spec: FieldSpec):
     return sub_body(torch.zeros_like(a), a, spec)
 
 
+_COL_INDEX = {}
+
+
+def _columns(a, b):
+    """Column sums c_k = sum_{i+j=k} a_i b_j, k < 2 NLIMBS - 1, of two
+    (NLIMBS, B) int64 limb tensors (either may be a constant column):
+    the (i, j) product grid, added into its columns in one index_add."""
+    grid = (a.unsqueeze(1) * b.unsqueeze(0)).reshape(NLIMBS * NLIMBS, -1)
+    idx = _COL_INDEX.get(str(grid.device))
+    if idx is None:
+        k = torch.arange(NLIMBS, device=grid.device)
+        idx = (k.view(-1, 1) + k.view(1, -1)).reshape(-1)
+        _COL_INDEX[str(grid.device)] = idx
+    cols = grid.new_zeros((2 * NLIMBS - 1, grid.shape[1]))
+    return cols.index_add_(0, idx, grid)
+
+
+def _fold(x, passes: int):
+    """`passes` shift-fold passes (carry_fold2's step); carries out of the
+    top row are dropped."""
+    for _ in range(passes):
+        hi = x >> LIMB_BITS
+        x = x & MASK
+        x[1:] += hi[:-1]
+    return x
+
+
 def mont_mul_body(a, b, spec: FieldSpec):
-    """Montgomery product a*b*2^-256 mod N on (NLIMBS, B) carried limbs:
-    three 16x16-limb convolutions with whole-row column updates (column
-    bound 32 * 2^16 < 2^21), as lmfield.mont_mul_body."""
-    nl, nv = spec.n_limbs, spec.ninv_limbs
-    k2 = 2 * NLIMBS
-    shape = (k2,) + tuple(a.shape[1:])
+    """Montgomery product a*b*2^-256 mod N on (NLIMBS, B) canonical limbs,
+    canonical out: lmfield.mont_mul_body's function and steps
+    (T = a*b, m = T*N' mod 2^256, (T + m*N) / 2^256, one conditional
+    subtract), with whole int64 column sums in place of its uint32
+    low/high halves.
 
-    # T = a*b over 32 columns
-    cols = torch.zeros(shape, dtype=a.dtype, device=a.device)
-    for j in range(NLIMBS):
-        prod = a * b[j]
-        cols[j:j + NLIMBS] += prod & MASK
-        cols[j + 1:j + NLIMBS + 1] += prod >> LIMB_BITS
-    t = carry_fold2(cols)
-
-    # m = (T mod 2^256) * N' mod 2^256 — low 16 columns only
-    tl = t[:NLIMBS]
-    mcols = torch.zeros_like(tl)
-    for j in range(NLIMBS):
-        if nv[j] == 0:
-            continue
-        prod = tl[:NLIMBS - j] * nv[j]
-        mcols[j:] += prod & MASK
-        if j + 1 < NLIMBS:
-            mcols[j + 1:] += (prod >> LIMB_BITS)[:NLIMBS - j - 1]
-    m = carry_fold2(mcols)  # top carries dropped = mod 2^256
-
-    # T + m*N: the low half is 0 or 2^256 after a fold, so its carry into
-    # the high half is the overflow row plus an any-nonzero test
-    mncols = torch.zeros(shape, dtype=a.dtype, device=a.device)
-    for j in range(NLIMBS):
-        if nl[j] == 0:
-            continue
-        prod = m * nl[j]
-        mncols[j:j + NLIMBS] += prod & MASK
-        mncols[j + 1:j + NLIMBS + 1] += prod >> LIMB_BITS
-    total = mncols + t
-    low = carry_fold2(_with_overflow_row(total[:NLIMBS]))
-    carry = low[NLIMBS] + (low[:NLIMBS] != 0).any(dim=0).to(a.dtype)
-    hi = total[NLIMBS:].clone()
-    hi[0] += carry
-    return cond_sub_n(carry_prop(hi), spec)
+    Bounds: T's 31 columns are below 16 * 2^32 = 2^36; m's 16 columns
+    below 2^56, folded three times to limbs below 2^16 + 2^9, so m <
+    (1 + 2^-7) 2^256 and m = T*N' mod 2^256 as a value (the dropped
+    carries are multiples of 2^256); the columns of T + m*N are below
+    2^38, its exact carry leaves the low 16 limbs 0, and the high ones
+    hold (T + m*N) / 2^256 < N/4 + (1 + 2^-7) N < 2N."""
+    t = _columns(a, b)
+    m = _fold(_columns(t[:NLIMBS], spec.col("ninv", a.device))[:NLIMBS], 3)
+    total = _with_overflow_row(t + _columns(m, spec.col("n", a.device)))
+    return cond_sub_n(carry_prop(_fold(total, 1))[NLIMBS:], spec)
 
 
 def is_zero(a):
@@ -243,9 +244,16 @@ def pow_bits_body(a, bits, spec: FieldSpec, mul=None):
     return result
 
 
+def inv_mont_body(a, spec: FieldSpec):
+    """Fermat inversion a^(N-2) in Montgomery form, inv(0) = 0, on int64
+    limbs: lmfield.inv_mont's square-and-multiply over the bits of N - 2."""
+    return select(is_zero(a), a, pow_bits_body(a, spec.inv_exp_bits, spec))
+
+
 def inv_mont(a, spec: FieldSpec):
     """Fermat inversion in Montgomery form; inv(0) = 0 (int32 in and out).
-    Used on tiny batches only."""
-    a64 = a.to(I64)
-    result = pow_bits_body(a64, spec.inv_exp_bits, spec)
-    return select(is_zero(a64), a64, result).to(I32)
+    CUDA tensors go to the Hopper inversion kernel (csrc/tower.cu, which
+    raises if it cannot run); CPU tensors to the plain body."""
+    if a.is_cuda:
+        return kernels.fq_inv(a, spec.kernel_id)
+    return inv_mont_body(a.to(I64), spec).to(I32)

@@ -14,7 +14,7 @@ after reset_launches(record=True) it also keeps the arguments of its
 widest launch, so a caller can rerun exactly that launch.
 There is no fallback: a wrapper given CPU tensors raises (the plain
 versions live beside the callers, in ops/field.py, ops/field8.py,
-ops/curve.py, ops/decomp.py and ops/msm_forest.py).
+ops/curve.py, ops/decomp.py, ops/msm_forest.py and ops/pairing.py).
 
 Two limb formats cross this boundary: (16, B) int32 rows of 16-bit limbs
 and (32, B) float32 rows of 8-bit limbs. The float32 kernels take
@@ -49,7 +49,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("mont_mul.cu", "frontier.cu", "point_add.cu", "point_double.cu",
-           "mont_mul8.cu", "point_add8.cu")
+           "mont_mul8.cu", "point_add8.cu", "tower.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_ELEMENTS = 1 << 31  # rows are addressed in 32 bits
@@ -65,7 +65,7 @@ _libs: dict = {}
 # launches and output lanes per kernel since the last reset_launches()
 LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
             "point_add": 0, "point_double": 0, "mont_mul8": 0,
-            "point_add8": 0}
+            "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq_inv": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
@@ -256,6 +256,11 @@ SIGNATURES = {
     "point_double.cu": {"h2v_point_double": [_VP] * 6 + [_LL, _VP]},
     "mont_mul8.cu": {"h2v_mont_mul8": [_VP, _VP, _VP, _LL, _CI, _VP]},
     "point_add8.cu": {"h2v_point_add8": _POINT_ADD_ARGS},
+    "tower.cu": {
+        "h2v_fq_addsub": [_VP, _LL, _VP, _LL, _VP, _LL, _CI, _VP],
+        "h2v_fq_linmap": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
+        "h2v_fq_inv": [_VP, _VP, _LL, _CI, _VP],
+    },
 }
 
 
@@ -465,3 +470,99 @@ def point_add8(p, q, mask=None, iL=None, iR=None):
     returns (32, B) views into one (3, 32, B) float32 tensor."""
     return _point_add("point_add8", "f8", "point_add8.cu", p, q, mask, iL,
                       iR)
+
+
+# T1's operations
+FQ_ADD, FQ_SUB, FQ_NEG = 0, 1, 2
+
+
+def _check_rows(name, *ts):
+    """(16, B) int32 limb rows on one card, lanes at unit stride and rows
+    at any stride (a column slice of a wider tensor), every element
+    addressed in 32 bits."""
+    dev = ts[0].device
+    for t in ts:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expects CUDA tensors on one device")
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != NLIMBS:
+            raise ValueError(f"{name}: expects ({NLIMBS}, B) int32 limbs, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name}: expects lanes at unit stride")
+        if t.stride(0) * (NLIMBS - 1) + t.shape[1] >= MAX_ELEMENTS:
+            raise ValueError(f"{name}: rows past 32-bit addressing")
+
+
+def fq_addsub(a, b, op: int):
+    """T1: the elementwise Fq add (op FQ_ADD), subtract (FQ_SUB) or
+    negate (FQ_NEG, b None) of (16, B) int32 canonical Montgomery limbs,
+    each operand at its own row stride; a new contiguous output."""
+    if op not in (FQ_ADD, FQ_SUB, FQ_NEG):
+        raise ValueError(f"fq_addsub: unknown op {op}")
+    ts = (a,) if op == FQ_NEG else (a, b)
+    _check_rows("fq_addsub", *ts)
+    if op != FQ_NEG and b.shape != a.shape:
+        raise ValueError("fq_addsub: operand shapes differ")
+    width = a.shape[1]
+    out = torch.empty((NLIMBS, width), dtype=torch.int32, device=a.device)
+    if width == 0:
+        return out
+    lib = _lib("tower.cu")
+    with torch.cuda.device(a.device):
+        rc = lib.h2v_fq_addsub(
+            a.data_ptr(), a.stride(0),
+            None if op == FQ_NEG else b.data_ptr(),
+            0 if op == FQ_NEG else b.stride(0),
+            out.data_ptr(), width, op, _stream(a.device))
+    _raise_on(rc, "fq_addsub")
+    _count("fq_addsub", width, (a, b, op))
+    return out
+
+
+def fq_linmap(x, m):
+    """T2: the exact linear map out[:, o] = sum_j m[o, j] x[:, j] mod q
+    on (16, k, B) int32 canonical Montgomery limbs x and an (n_out, k)
+    int32 matrix m of small coefficients (a thread adds or subtracts x_j
+    |m[o, j]| times), both contiguous on the card; canonical
+    (16, n_out, B) out."""
+    dev = x.device
+    if not x.is_cuda or not m.is_cuda or m.device != dev:
+        raise ValueError("fq_linmap: expects CUDA tensors on one device")
+    if (x.dtype != torch.int32 or x.dim() != 3 or x.shape[0] != NLIMBS
+            or not x.is_contiguous()):
+        raise ValueError("fq_linmap: x must be contiguous (16, k, B) int32")
+    k, width = x.shape[1], x.shape[2]
+    if (m.dtype != torch.int32 or m.dim() != 2 or m.shape[1] != k
+            or not m.is_contiguous()):
+        raise ValueError(f"fq_linmap: m must be a contiguous (n_out, {k}) "
+                         "int32 matrix")
+    n_out = m.shape[0]
+    if x.numel() >= MAX_ELEMENTS or NLIMBS * n_out * width >= MAX_ELEMENTS:
+        raise ValueError("fq_linmap: a tensor of 2^31 or more elements")
+    out = torch.empty((NLIMBS, n_out, width), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _lib("tower.cu")
+    with torch.cuda.device(dev):
+        rc = lib.h2v_fq_linmap(x.data_ptr(), m.data_ptr(), out.data_ptr(),
+                               k, n_out, width, _stream(dev))
+    _raise_on(rc, "fq_linmap")
+    _count("fq_linmap", n_out * width, (x, m))
+    return out
+
+
+def fq_inv(a, field_id: int):
+    """T3: the Fermat inversion a^(N-2) of (16, B) int32 canonical
+    Montgomery limbs on the card (a R -> a^-1 R, inv(0) = 0). field_id
+    0 = Fq, 1 = Fr."""
+    _check_limbs("fq_inv", "u16", a)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    lib = _lib("tower.cu")
+    with torch.cuda.device(a.device):
+        rc = lib.h2v_fq_inv(a.data_ptr(), out.data_ptr(), a.shape[1],
+                            field_id, _stream(a.device))
+    _raise_on(rc, "fq_inv")
+    _count("fq_inv", a.shape[1], (a, field_id))
+    return out

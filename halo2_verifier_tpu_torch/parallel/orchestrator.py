@@ -9,8 +9,10 @@ Pipeline:
 3. DEVICE: both MSMs as one host-planned addition forest
    (ops/msm_forest.py) or, with msm="scan", one host-sorted segmented
    scan (ops/msm_scan.py), giving a (3, nlimbs, 64) window-totals tensor.
-4. HOST: exact combine of the window totals and one native pairing per
-   batch; on failure, bisection over the replayed per-proof MSMs.
+4. HOST: exact combine of the window totals and one pairing per batch
+   (the native host pairing, or with pairing="device" the tower of
+   ops/pairing.py on the verifier's device); on failure, bisection over
+   the replayed per-proof MSMs.
 
 All device work runs on the current stream of one device. Results come
 back through a non-blocking copy into pinned host memory and a recorded
@@ -38,6 +40,7 @@ from ..ops.msm import NUM_WINDOWS, combine_window_totals_grouped
 from ..protocol.kzg import DualMSM, VerifyFailure, pairing_backend
 from ..protocol.verifier import verify_proof
 from ..transcript import TRANSCRIPT_READERS
+from ..utils.device import resolve_device
 from ..utils.metrics import StageTimings
 
 
@@ -54,22 +57,6 @@ def _dedup_entries(entries):
         else:
             out[j][0] = (out[j][0] + s) % R
     return [(s, b) for s, b in out]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. Raises when CUDA is asked for (or defaulted to) and absent —
-    there is no silent fallback to the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device='cpu' explicitly to "
-                "run on the plain torch versions")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but CUDA is not available")
-    return dev
 
 
 @dataclass
@@ -89,7 +76,11 @@ class BatchVerifier:
     limb_backend: the scan MSM's limb format, "u16" ((16, B) int32 limbs)
     or "f8" ((32, B) float32 limbs); both give the same window totals.
     decomp: run the device sqrt pre-pass in verify_stream; None = on for a
-    CUDA device, off otherwise."""
+    CUDA device, off otherwise.
+    pairing: "host" (the native pairing) or "device" (ops/pairing.py on
+    this verifier's device); its stage in `timings` is "<pairing>_pairing".
+    strategy: "accumulator" (one pairing per batch) or "single" (one per
+    proof)."""
 
     # padded sizes quantize to this granularity
     PAD_GRAN = 256
@@ -114,7 +105,7 @@ class BatchVerifier:
             raise ValueError("msm='host' runs the MSM on the CPU; it is for "
                              "CPU orchestration tests, not a CUDA device")
         self.pairing = pairing
-        self._pairing_fn = pairing_backend(pairing)
+        self._pairing_fn = pairing_backend(pairing, self.device)
         self.params = params
         self.vk = vk
         self.multiopen = multiopen
@@ -451,7 +442,7 @@ class BatchVerifier:
         return combine_window_totals_grouped(self._fetch(arr), 2)
 
     def _pairing_ok(self, left, right) -> bool:
-        with self.timings.stage("host_pairing"):
+        with self.timings.stage(f"{self.pairing}_pairing"):
             return self._pairing_fn([
                 (left, self.params.s_g2),
                 (right, hc.g2_neg(self.params.g2)),
@@ -618,6 +609,7 @@ class BatchVerifier:
                                        [instances],
                                        multiopen=self.multiopen,
                                        hash_name=self.hash_name,
-                                       pairing=self.pairing):
+                                       pairing=self.pairing,
+                                       device=self.device):
                 failed.append(i)
         return BatchResult(not failed, len(proofs_and_instances), failed)

@@ -13,6 +13,7 @@ one big device MSM with a single pairing.
 
 from __future__ import annotations
 
+import functools
 import secrets
 from dataclasses import dataclass, field
 
@@ -131,13 +132,20 @@ class DualMSM:
         )
 
 
-def pairing_backend(name: str = "host"):
+def pairing_backend(name: str = "host", device=None):
     """Final-pairing engine: "host" = native C++ Miller loop
     (ops/hostpairing.py, the latency-shaped default — one pairing costs
-    ~15 ms on CPU); "device" = the lane-packed device tower, which this
-    package does not have yet."""
+    ~15 ms on CPU); "device" = the lane-packed tower of ops/pairing.py
+    bound to `device` (None: the CUDA card, raising if there is none), on
+    K1 and the tower kernels for a CUDA device and on their plain
+    versions for the CPU. Both give the same verdict (tests/
+    test_torch_pairing_check.py)."""
     if name == "device":
-        raise NotImplementedError("device pairing: not yet ported")
+        from ..ops.pairing import pairing_check_device
+        from ..utils.device import resolve_device
+
+        return functools.partial(pairing_check_device,
+                                 device=resolve_device(device))
     if name in ("host", None):
         return hp.pairing_check
     raise ValueError(f"unknown pairing backend {name!r} "
@@ -145,11 +153,13 @@ def pairing_backend(name: str = "host"):
 
 
 class SingleStrategy:
-    """Verify one proof, pairing immediately (kzg/strategy.rs:83-181)."""
+    """Verify one proof, pairing immediately (kzg/strategy.rs:83-181).
+    `device` binds the device pairing (pairing_backend)."""
 
-    def __init__(self, params: ParamsKZG, pairing: str = "host"):
+    def __init__(self, params: ParamsKZG, pairing: str = "host",
+                 device=None):
         self.params = params
-        self._pairing = pairing_backend(pairing)
+        self._pairing = pairing_backend(pairing, device)
 
     def process(self, f) -> None:
         guard = GuardKZG(f(DualMSM(self.params)))
@@ -164,12 +174,15 @@ class SingleStrategy:
 
 class AccumulatorStrategy:
     """Batch verifier: random-scale the accumulator before each proof and
-    defer a single pairing to finalize() (kzg/strategy.rs:55-141)."""
+    defer a single pairing to finalize() (kzg/strategy.rs:55-141), on the
+    engine pairing_backend(pairing, device) gives."""
 
-    def __init__(self, params: ParamsKZG, rng=None):
+    def __init__(self, params: ParamsKZG, rng=None, pairing: str = "host",
+                 device=None):
         self.params = params
         self.msm_accumulator = DualMSM(params)
         self._rng = rng or (lambda: secrets.randbelow(R))
+        self._pairing = pairing_backend(pairing, device)
 
     def process(self, f) -> "AccumulatorStrategy":
         self.msm_accumulator.scale(self._rng())
@@ -177,7 +190,7 @@ class AccumulatorStrategy:
         return self
 
     def finalize(self) -> bool:
-        return self.msm_accumulator.check()
+        return self.msm_accumulator.check(pairing=self._pairing)
 
 
 @dataclass

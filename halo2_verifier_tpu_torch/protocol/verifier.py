@@ -232,12 +232,13 @@ def verify_proof(params, vk, strategy, instances, transcript,
 
 def verify_proof_single(params, vk, proof: bytes, instances,
                         multiopen="shplonk", hash_name="blake2b",
-                        pairing="host") -> bool:
+                        pairing="host", device=None) -> bool:
     """Convenience wrapper: SingleStrategy over raw proof bytes; returns a
     bool like the reference tests' `verify_proof(..).is_ok()`.
-    pairing: "host" (C++ Miller loop); "device" is not ported yet."""
+    pairing: "host" (C++ Miller loop) | "device" (ops/pairing.py on
+    `device`, None for the CUDA card)."""
     transcript = TRANSCRIPT_READERS[hash_name](proof)
-    strategy = SingleStrategy(params, pairing=pairing)
+    strategy = SingleStrategy(params, pairing=pairing, device=device)
     try:
         verify_proof(params, vk, strategy, instances, transcript,
                      multiopen=multiopen)

@@ -15,9 +15,12 @@ from halo2_verifier_tpu_torch import weights
 from halo2_verifier_tpu_torch.ops import curve, decomp, field as fm
 from halo2_verifier_tpu_torch.ops import field8 as f8
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
+from halo2_verifier_tpu_torch.ops import hostpairing as hp
 from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
+from halo2_verifier_tpu_torch.ops import pairing as tp
 from halo2_verifier_tpu_torch.ops.constants import (
-    G1_GEN, P, R, fq_edge_triples, sqrt_edge_xs)
+    FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, fq_edge_triples,
+    sqrt_edge_xs)
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -233,6 +236,13 @@ def test_wrappers_refuse_cpu_tensors(cuda):
     with pytest.raises(ValueError):
         kernels.point_add8(tuple(c.to(cuda) for c in p16),
                            tuple(c.to(cuda) for c in p16))
+    with pytest.raises(ValueError):
+        kernels.fq_addsub(p16[0], p16[1], kernels.FQ_ADD)
+    with pytest.raises(ValueError):
+        kernels.fq_inv(p16[0], 0)
+    with pytest.raises(ValueError):
+        kernels.fq_linmap(p16[0].reshape(16, 1, 4), tp._map_tensor(
+            tp._FQ12_MA, cuda))
 
 
 @pytest.mark.parametrize("backend", ["u16", "f8"])
@@ -350,3 +360,83 @@ def test_k14_stream_on_card(cuda):
     assert all(kernels.LAUNCHES[k] > 0
                for k in ("forest_frontier0", "sqrt_principal", "point_add"))
     assert kernels.LAUNCHES["mont_mul"] == 0
+
+
+def _fq_operands(n, seed):
+    """(a, b) of n canonical Fq values each: the edge values (0, p - 1,
+    the FOLD_EDGE pairs, ...) against each other, then random."""
+    a = FQ_EDGE + [x for x, _ in FOLD_EDGE]
+    b = FQ_EDGE[::-1] + [y for _, y in FOLD_EDGE]
+    rng = np.random.default_rng(seed)
+    a += [int.from_bytes(rng.bytes(32), "little") % P
+          for _ in range(n - len(a))]
+    b += [int.from_bytes(rng.bytes(32), "little") % P
+          for _ in range(n - len(b))]
+    return a, b
+
+
+def test_fq_addsub_kernel_matches_plain(cuda):
+    """T1: add, sub and neg on the edge values and random ones, one
+    operand a column slice of a wider tensor (its own row stride)."""
+    a, b = _fq_operands(1000, 21)
+    A = _limbs_t(a + b, cuda)[:, :1000]  # row stride 2,000
+    B = _limbs_t(b, cuda)
+    before = kernels.LAUNCHES["fq_addsub"]
+    for op, plain in ((kernels.FQ_ADD, fm.add_body),
+                      (kernels.FQ_SUB, fm.sub_body)):
+        got = kernels.fq_addsub(A, B, op)
+        assert torch.equal(got, plain(A.long(), B.long(), fm.FQ).int())
+    got = kernels.fq_addsub(A, None, kernels.FQ_NEG)
+    assert torch.equal(got, fm.neg_body(A.long(), fm.FQ).int())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fq_addsub"] == before + 3
+    assert limbs_to_ints(got.cpu().numpy().T) == [(-x) % P for x in a]
+
+
+@pytest.mark.parametrize("name", ["_FQ12_MA", "_FQ12_MB", "_FQ12_MC"])
+def test_fq_linmap_kernel_matches_plain(cuda, name):
+    """T2 on the three Fq12 maps at 1 and 300 lanes, edge values included."""
+    M = getattr(tp, name)
+    k = M.shape[1]
+    vals, _ = _fq_operands(k * 300, 22)
+    X = _limbs_t(vals, cuda).reshape(16, k, 300)
+    for x in (X[:, :, :1].contiguous(), X):
+        got = kernels.fq_linmap(x, tp._map_tensor(M, cuda))
+        assert torch.equal(got, tp.linear_combine_plain(x, M))
+
+
+@pytest.mark.parametrize("spec", [fm.FQ, fm.FR], ids=["fq", "fr"])
+def test_fq_inv_kernel_matches_plain(cuda, spec):
+    """T3 through field.inv_mont (0 -> 0 included) against the plain body."""
+    vals = [v % spec.modulus for v in _fq_operands(256, 23)[0]]
+    a = _limbs_t(vals, cuda)
+    before = kernels.LAUNCHES["fq_inv"]
+    got = fm.inv_mont(a, spec)
+    want = fm.inv_mont_body(a.long(), spec).int()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kernels.LAUNCHES["fq_inv"] == before + 1
+    assert int(got[:, vals.index(0)].abs().sum()) == 0
+
+
+def test_device_pairing_on_card(cuda):
+    """The device pairing on the card: Miller lanes equal the oracle's,
+    the bilinearity verdicts the oracle's, through K1 and T1-T3."""
+    pairs = [(hc.g1_mul(G1_GEN, 3), hc.g2_mul(G2_GEN, 5)),
+             (hc.g1_mul(G1_GEN, 7), hc.g2_mul(G2_GEN, 11))]
+    g1 = np.stack([tp.mont_cols([p[0] for p, _ in pairs]),
+                   tp.mont_cols([p[1] for p, _ in pairs])])
+    g2 = np.stack([tp.mont_cols([q[i][j] for _, q in pairs])
+                   for i in range(2) for j in range(2)])
+    kernels.reset_launches()
+    lanes = tp.miller_lanes(torch.from_numpy(g1).to(cuda),
+                            torch.from_numpy(g2).to(cuda))
+    for i, (p, q) in enumerate(pairs):
+        assert tp.fq12_from_device(lanes, lane=i) == hp.miller_loop(p, q)
+    good = [(hc.g1_mul(G1_GEN, 6), hc.g2_mul(G2_GEN, 13)),
+            (hc.g1_neg(hc.g1_mul(G1_GEN, 78)), G2_GEN)]
+    bad = [good[0], (hc.g1_neg(hc.g1_mul(G1_GEN, 79)), G2_GEN)]
+    assert tp.pairing_check_device(good) is True
+    assert tp.pairing_check_device(bad, cuda) is False
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("mont_mul", "fq_addsub", "fq_linmap", "fq_inv"))

@@ -61,3 +61,12 @@ def test_importing_the_port_loads_no_jax_package_module():
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300)
+
+
+def test_sources_cover_every_port_module():
+    """The walk above reaches the modules a slice adds (the device
+    pairing, the configuration, the device policy)."""
+    rel = {os.path.relpath(p, REPO) for p in _sources()}
+    for name in ("ops/pairing.py", "config.py", "utils/device.py",
+                 "__init__.py"):
+        assert os.path.join("halo2_verifier_tpu_torch", name) in rel

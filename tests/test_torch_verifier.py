@@ -260,7 +260,9 @@ def test_unknown_msm_and_backend_names_raise(two_circuits):
 
 def test_device_policy(two_circuits, monkeypatch):
     """Entry points default to CUDA and raise when it is absent; CPU runs
-    only when asked for; unported paths raise."""
+    only when asked for; unported paths raise. The device pairing is
+    bound to the verifier's device: CUDA by default, so it raises with
+    the verifier when CUDA is absent."""
     _jparams, params, vm_proofs, _ = two_circuits
     vk = vm_proofs[0][3]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -272,8 +274,10 @@ def test_device_policy(two_circuits, monkeypatch):
     assert bv.device.type == "cpu" and not bv.decomp
     with pytest.raises(NotImplementedError):
         BatchVerifier(params, vk, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        BatchVerifier(params, vk, device="cpu", pairing="device")
+    bv = BatchVerifier(params, vk, device="cpu", pairing="device")
+    assert bv._pairing_fn.keywords == {"device": torch.device("cpu")}
+    with pytest.raises(RuntimeError):
+        BatchVerifier(params, vk, pairing="device")
 
 
 def test_host_msm_refused_on_cuda(two_circuits, monkeypatch):
