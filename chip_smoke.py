@@ -27,11 +27,13 @@ Phases, one output line each (JSON unless noted):
    affine points and every 8-bit-limb output against the re-limbed
    16-bit-limb kernel's; the 8-bit-limb outputs' range; the device
    pairing's tower kernels (Fq add/sub/neg, the Fq12 linear maps, the
-   Fermat inversion) at the pairing's widths and at 16,384 lanes, with
-   edge operands; the device pairing check: Miller lanes against the
-   host oracle, good and tampered verdicts against the host pairing, its
-   time beside the host pairing's, launches per check and the profiler's
-   count of device kernels in one check;
+   fused Fq12 multiply and square, the Fermat inversion for Fq and Fr)
+   at the pairing's widths and at 16,384 lanes, with edge operands; the
+   device pairing check: Miller lanes against the host oracle, good and
+   tampered verdicts against the host pairing, its time beside the host
+   pairing's, launches per check by kernel (held to the counts of the
+   dispatch), the profiler's count of device kernels in one check, its
+   device busy time and device time per launch;
 4. one forest MSM and one scan MSM per limb backend of a main-path batch's
    size (16,640 random scalars and points in groups of 1,024 and 15,616)
    against the exact host MSM, the f8 window totals bit-equal to the
@@ -48,10 +50,13 @@ Phases, one output line each (JSON unless noted):
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
    device, in either package); the forest stream once more with
-   pairing="device" (8 batches; K1 and the tower kernels T1-T3 join the
-   forest's kernels), its tampered 64-proof batch, and strategy="single"
-   with the device pairing on 8 proofs, one tampered (only K1 and T1-T3
-   launch: the single strategy's MSMs run on the host);
+   pairing="device" (8 batches; K1, T1, the fused Fq12 multiply and T3
+   join the forest's kernels), its tampered 64-proof batch, and
+   strategy="single" with the device pairing on 8 proofs, one tampered
+   (only K1, T1, the Fq12 multiply and T3 launch: the single strategy's
+   MSMs run on the host); T2 through its entry, ops/pairing.py
+   _linear_combine, on the three Fq12 maps at 16,384 lanes (the pairing
+   runs its maps inside the fused multiply);
 6. kernel timings on the arguments of each kernel's widest launch on its
    path (the wrappers keep them), each the profiler's device time per
    launch (CUDA events around 20 calls beside it), beside the plain
@@ -95,6 +100,10 @@ DEVICE_PAIRING_BATCHES = 8            # the paced rate spans 5 intervals
 SINGLE_PROOFS = 8
 SINGLE_TAMPER_INDEX = 5
 PAIRING_REPS = 5                     # checks timed, median reported
+# kernel launches of one device pairing check of two live pairs, as the
+# dispatch counts them (tests/test_torch_fq12_fused.py)
+PAIRING_LAUNCHES = {"mont_mul": 587, "fq_addsub": 5335, "fq_linmap": 0,
+                    "fq12_mul": 1318, "fq_inv": 103}
 
 # Bound model: the least time of an operation count is the longest of the
 # SM's pipes that must run it (NVIDIA CUDA C++ Programming Guide,
@@ -116,11 +125,14 @@ PAIRING_REPS = 5                     # checks timed, median reported
 # limbs in float32 load with one byte_perm per word (8) and store with one
 # per byte (32), their float halves and bytes made by 32 FP32 operations
 # each way (csrc/field.cuh Limbs8). An exact linear map with small integer
-# coefficients: per nonzero coefficient one element times a small scalar
-# accumulated (8 word products of 2 multiply-adds), per output one
-# reduction (a quotient's product with the modulus, 16 multiply-adds, and
-# a conditional subtract); an exponentiation by a constant: the shortest
-# fixed-window chain for it (ops/decomp.py window_chain_counts).
+# coefficients (ops_linmap): per output a coefficient of +-1 is an 8-word
+# add or subtract (8 ALU operations; the output's first term is free), any
+# other one element times a small scalar accumulated (8 word products of 2
+# multiply-adds), and one reduction (a quotient's product with the
+# modulus, 16 multiply-adds, and a conditional subtract); an output that
+# is one of its operands copies it and costs nothing; an exponentiation by
+# a constant: the shortest fixed-window chain for it (ops/decomp.py
+# window_chain_counts).
 IMAD_PER_SM_CLK = 64
 ALU_PER_SM_CLK = 64
 ISSUE_PER_SM_CLK = 128
@@ -138,6 +150,7 @@ MONT_MUL = (128 * 2 + 8, 16, 0)
 MONT_SQR = ((36 + 64) * 2 + 8, 16, 0)
 ADD_SUB = (0, 24, 0)
 SCALAR_MAD = (8 * 2, 0, 0)
+ADD8 = (0, 8, 0)
 LINMAP_REDUCE = (8 * 2, 16, 0)
 LOAD16, STORE16 = (0, 8, 0), (0, 16, 0)
 LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
@@ -145,6 +158,21 @@ LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
 # stores
 OPS_POINT_DOUBLE = ops((8, MONT_MUL), (14, ADD_SUB), (3, LOAD16),
                        (3, STORE16))
+
+
+def ops_linmap(M):
+    """(multiply-adds, ALU, FP32) of the exact linear map M (n_out, k) on
+    one lane, as the bound model above counts it."""
+    terms = []
+    for row in M:
+        nz = row[row != 0]
+        if len(nz) == 1 and nz[0] == 1:
+            continue  # a copy
+        scaled = int((abs(nz) > 1).sum())
+        unit = len(nz) - scaled
+        terms += [(scaled, SCALAR_MAD), (unit - (scaled == 0), ADD8),
+                  (1, LINMAP_REDUCE)]
+    return ops(*terms)
 
 
 def inv_chain_counts(e):
@@ -732,6 +760,38 @@ def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
              "launches": record["launches"]}, record)
 
 
+def phase_linmap_path(torch, np, fm, tp, kernels, ints_to_limbs, dev):
+    """T2's path: its entry, ops/pairing.py _linear_combine (the Fq12
+    multiply runs its maps inside its own launch, so the device pairing
+    launches no T2), on the three Fq12 maps at 16,384 lanes of the tower
+    operands; counts are set to 0 just before and read just after, and
+    each output is held against the plain version."""
+    rng = np.random.default_rng(13)
+    width = max(TOWER_WIDTHS)
+    kernels.reset_launches(record=True)
+    outs = []
+    for M in (tp._FQ12_MA, tp._FQ12_MB, tp._FQ12_MC):
+        k = M.shape[1]
+        vals = np.concatenate([tower_operands(
+            np, rng, fm.FQ.modulus, ints_to_limbs, width)[0]
+            for _ in range(k)], axis=1)
+        X = torch.from_numpy(vals.astype(np.int32)).to(dev).reshape(
+            16, k, width)
+        outs.append((tp._linear_combine(X, M), X, M))
+    torch.cuda.synchronize()
+    record = {"launches": dict(kernels.LAUNCHES),
+              "lanes": dict(kernels.LANES), "widest": dict(kernels.WIDEST),
+              "batches": 1}
+    err = max(max_abs_err(torch, got, tp.linear_combine_plain(X, M))
+              for got, X, M in outs)
+    if record["launches"]["fq_linmap"] != 3 or sum(
+            record["launches"].values()) != 3:
+        raise AssertionError(f"linmap_path: launches {record['launches']}")
+    return ({"phase": "linmap_path", "entry": "ops/pairing.py "
+             "_linear_combine", "lanes": width, "maps": ["MA", "MB", "MC"],
+             "max_abs_err": err, "launches": record["launches"]}, record)
+
+
 def tower_operands(np, rng, modulus, ints_to_limbs, width):
     """(a, b): (16, width) uint32 limbs of canonical values, the edge
     values (0, 1, p - 1, runs of one-words, the FOLD_EDGE pairs against
@@ -748,13 +808,32 @@ def tower_operands(np, rng, modulus, ints_to_limbs, width):
     return a.T.copy(), b.T.copy()
 
 
+def fq12_stacks(np, rng, ints_to_limbs, width):
+    """(a, b): (16, 12, width) int32 coefficient stacks, the edge pairs
+    (constants.fq12_edge_pairs: zero coefficients, the FOLD_EDGE pairs in
+    one product, every FQ_EDGE value in every coefficient) in the first
+    lanes, random canonical values after."""
+    from halo2_verifier_tpu_torch.ops.constants import P, fq12_edge_pairs
+
+    pairs = fq12_edge_pairs()[:width]
+    out = []
+    for side in (0, 1):
+        limbs = random_field(np, rng, P, 12 * width).reshape(12, width, 16)
+        for lane, pair in enumerate(pairs):
+            limbs[:, lane] = ints_to_limbs(list(pair[side]))
+        out.append(np.ascontiguousarray(limbs.transpose(2, 0, 1))
+                   .astype(np.int32))
+    return out
+
+
 def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
     """The device pairing's tower kernels against their plain versions,
     bit for bit, at the pairing's widths (1 and 2 lanes: two live pairs)
     and at 16,384 lanes: T1 add, sub and neg (operand a a column slice of
     a wider tensor, read at its own row stride), T2 on the three Fq12
-    maps, T3 for Fq and Fr (0 -> 0 in the first lane). Each kernel also
-    timed at 16,384 lanes beside its plain version and its bound."""
+    maps, the fused Fq12 multiply and square on the edge pairs, T3 for Fq
+    and Fr (0 -> 0 in the first lane). Each kernel also timed at 16,384
+    lanes beside its plain version and its bound (T3 for Fq and Fr)."""
     rng = np.random.default_rng(12)
     checked, worst, wide = [], 0, {}
 
@@ -791,6 +870,16 @@ def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
             checked.append(["fq_linmap", name, w, err])
         if name == "_FQ12_MC":
             wide["fq_linmap"] = args
+    stacks = fq12_stacks(np, rng, ints_to_limbs, max(TOWER_WIDTHS))
+    A, B = (up(x) for x in stacks)
+    for w in TOWER_WIDTHS:
+        a, b = A[:, :, :w].contiguous(), B[:, :, :w].contiguous()
+        for name, args in (("fq12_mul", (a, b)), ("fq12_square", (a, a))):
+            err = max_abs_err(torch, tp.fq12_mul_stack(*args),
+                              tp.fq12_mul_plain(*args))
+            worst = max(worst, err)
+            checked.append([name, w, err])
+    wide["fq12_mul"] = (A, B)
     for spec in (fm.FQ, fm.FR):
         x = up(tower_operands(np, rng, spec.modulus, ints_to_limbs,
                               max(TOWER_WIDTHS))[0])
@@ -802,15 +891,15 @@ def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
                       int(got[:, 0].abs().max()))  # inv(0) = 0
             worst = max(worst, err)
             checked.append(["fq_inv", spec.kernel_id, w, err])
-        if spec is fm.FQ:
-            wide["fq_inv"] = args
+        wide["fq_inv" if spec is fm.FQ else "fq_inv_fr"] = args
     timings = {}
-    for name, args in wide.items():
+    for label, args in wide.items():
+        name = label.removesuffix("_fr")
         fn = getattr(kernels, name)
         plain, nbytes, counts = kernel_case(name, args, None, fm, None, None)
         bound_ms, bound_by = card.bound(nbytes, counts)
         ms, ms_basis, events_ms = kernel_ms(torch, name, lambda: fn(*args))
-        timings[name] = {
+        timings[label] = {
             "lanes": int(args[0].shape[-1]), "ms": sig(ms),
             "ms_basis": ms_basis, "events_ms": round(events_ms, 4),
             "plain_ms": round(time_ms(torch, plain, reps=1), 4),
@@ -834,8 +923,10 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     pairs equal the host oracle's (hostpairing.miller_loop), the
     bilinearity verdicts (good and tampered) the host pairing's; the time
     of one check (median of PAIRING_REPS) beside the host pairing's on
-    the same pairs; launches per check by kernel; the profiler's count of
-    device kernels and copies in one check and their device time."""
+    the same pairs; launches per check by kernel, which must be the
+    dispatch's counts (PAIRING_LAUNCHES: the Fq12 multiply fused, no T2);
+    the profiler's count of device kernels and copies in one check and
+    their device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -872,7 +963,12 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     host_s, host_all = median_s(lambda: hp.pairing_check(good))
     kernels.reset_launches()
     tp.pairing_check_device(good, dev)
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = {k: kernels.LAUNCHES[k] for k in PAIRING_LAUNCHES}
+    if launches != PAIRING_LAUNCHES or sum(kernels.LAUNCHES.values()) != sum(
+            PAIRING_LAUNCHES.values()):
+        raise AssertionError(f"pairing: launches per check "
+                             f"{dict(kernels.LAUNCHES)}, the dispatch counts "
+                             f"{PAIRING_LAUNCHES}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tp.pairing_check_device(good, dev)
@@ -887,8 +983,8 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     per_launch = {}
     for name, kernel in (("mont_mul", "mont_mul_kernel<0>"),
                          ("fq_addsub", "fq_addsub_kernel"),
-                         ("fq_linmap", "fq_linmap_kernel"),
-                         ("fq_inv", "fq_inv_kernel<0>")):
+                         ("fq12_mul", "fq12_mul_kernel"),
+                         ("fq_inv", "fq_inv_kernel<0,")):
         ev = [e for e in events if kernel in e.name]
         if ev:
             per_launch[name] = round(
@@ -915,8 +1011,9 @@ def phase_single(torch, kernels, BatchVerifier, fixture):
     """strategy="single" with the device pairing: one check per proof on
     SINGLE_PROOFS proofs, one with a public input + 1, which must fail at
     its index; the counts are set to 0 just before and read just after,
-    and only K1 and T1-T3 may launch (the single strategy's MSMs run on
-    the host, as in the reference's SingleStrategy). The host pairing's
+    and only K1, T1, the fused Fq12 multiply and T3 may launch (the
+    single strategy's MSMs run on the host, as in the reference's
+    SingleStrategy). The host pairing's
     verdict and time on the same batch beside it."""
     from halo2_verifier_tpu_torch.ops.constants import R
 
@@ -924,7 +1021,7 @@ def phase_single(torch, kernels, BatchVerifier, fixture):
     batch = list(items[:SINGLE_PROOFS])
     p, inst = batch[SINGLE_TAMPER_INDEX]
     batch[SINGLE_TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
-    expect = ("mont_mul", "fq_addsub", "fq_linmap", "fq_inv")
+    expect = ("mont_mul", "fq_addsub", "fq12_mul", "fq_inv")
     out_ = {"phase": "single_device_pairing", "proofs": SINGLE_PROOFS}
     for pairing in ("device", "host"):
         bv = BatchVerifier(params, vk, strategy="single", pairing=pairing)
@@ -976,7 +1073,11 @@ KERNELS = (
      "_fsub, :52 _fneg", "device_pairing_path"),
     ("fq_linmap", "halo2_verifier_tpu_torch/csrc/tower.cu",
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:245 "
-     "_linear_combine with :211 _reduce_mod_p", "device_pairing_path"),
+     "_linear_combine with :211 _reduce_mod_p", "linmap_path"),
+    ("fq12_mul", "halo2_verifier_tpu_torch/csrc/tower.cu",
+     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:461 fq12_mul "
+     "(:245 _linear_combine, :211 _reduce_mod_p and the K1 product of "
+     "halo2_verifier_tpu/ops/lmfield.py:440)", "device_pairing_path"),
     ("fq_inv", "halo2_verifier_tpu_torch/csrc/tower.cu",
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:56 _finv "
      "(halo2_verifier_tpu/ops/lmfield.py:474 inv_mont)",
@@ -993,7 +1094,7 @@ KERNEL_FN = {
     "sqrt_principal": "sqrt_principal_kernel",
     "forest_frontier0": "frontier0_kernel",
     "fq_addsub": "fq_addsub_kernel", "fq_linmap": "fq_linmap_kernel",
-    "fq_inv": "fq_inv_kernel",
+    "fq12_mul": "fq12_mul_kernel", "fq_inv": "fq_inv_kernel",
 }
 
 
@@ -1068,20 +1169,37 @@ def kernel_case(name, args, curve, fm, f8, decomp):
         M = m.cpu().numpy()
         k, b = x.shape[1], x.shape[2]
         n_out = M.shape[0]
-        # the function, not the kernel's schedule (|m[o, j]| modular adds
-        # per coefficient): per lane a scalar multiply-accumulate for each
-        # nonzero coefficient, a reduction per output, each operand loaded
-        # once, each output stored once
+        # the function, not the kernel's schedule: the map (ops_linmap),
+        # each operand loaded once, each output stored once
         return (lambda: linear_combine_plain(x, M),
                 LIMB_BYTES * (k + n_out) * b + 4 * M.size,
-                ops((int((M != 0).sum()) * b, SCALAR_MAD),
-                    (n_out * b, LINMAP_REDUCE), (k * b, LOAD16),
+                ops((b, ops_linmap(M)), (k * b, LOAD16),
                     (n_out * b, STORE16)))
+    if name == "fq12_mul":
+        from halo2_verifier_tpu_torch.ops import pairing
+
+        a, bb = args
+        b = a.shape[2]
+        n_in = 1 if a.data_ptr() == bb.data_ptr() else 2
+        # the function: the operand maps, the 54 products, the
+        # recombination map (ops_linmap); MA equals MB, so a square maps
+        # its operand once and squares; 24 (or, for a square, 12)
+        # coefficients loaded, 12 stored
+        if n_in == 1:
+            operands = ops((1, ops_linmap(pairing._FQ12_MA)), (54, MONT_SQR))
+        else:
+            operands = ops((1, ops_linmap(pairing._FQ12_MA)),
+                           (1, ops_linmap(pairing._FQ12_MB)), (54, MONT_MUL))
+        return (lambda: pairing.fq12_mul_plain(a, bb),
+                LIMB_BYTES * 12 * (n_in + 1) * b,
+                ops((b, operands), (b, ops_linmap(pairing._FQ12_MC)),
+                    (12 * n_in * b, LOAD16), (12 * b, STORE16)))
     if name == "fq_inv":
         a, field_id = args
         spec = fm.FQ if field_id == 0 else fm.FR
-        # the shortest fixed-window chain for N - 2 (the kernel runs the
-        # bit-by-bit ladder: 253 squarings, 109 products for Fq)
+        # the shortest fixed-window chain for N - 2 (the kernel's 3-bit
+        # window is it for Fq: 253 squarings, 71 products; and its two
+        # conversions between radixes are left out)
         squarings, multiplies = inv_chain_counts(spec.modulus - 2)
         b = a.shape[1]
         return (lambda: fm.inv_mont_body(a.long(), spec).int(),
@@ -1364,11 +1482,14 @@ def run(torch, card, dev, n_batches, make_verifier):
         torch, kernels, fixture, make_verifier, DEVICE_PAIRING_BATCHES,
         "device_pairing_path",
         ("forest_frontier0", "point_add", "sqrt_principal", "mont_mul",
-         "fq_addsub", "fq_linmap", "fq_inv"), pairing="device")
+         "fq_addsub", "fq12_mul", "fq_inv"), pairing="device")
     emit(res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch_device_pairing", pairing="device"))
     emit(phase_single(torch, kernels, make_verifier, fixture))
+    linmap_res, records["linmap_path"] = phase_linmap_path(
+        torch, np, fm, pairing, kernels, ints_to_limbs, dev)
+    emit(linmap_res)
 
     rows, beside = phase_timings(torch, card, kernels, records, curve, fm,
                                  f8, decomp)

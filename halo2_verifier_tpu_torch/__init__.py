@@ -5,8 +5,8 @@ tensor code is PyTorch, and every Pallas kernel of the reference is a
 hand-written Hopper kernel (csrc/: the Montgomery multiply and the square
 root, the forest's level-0 frontier, the masked point add in two limb
 formats, the doubling, the 8-bit-limb Montgomery multiply), plus the
-device pairing's tower kernels (Fq add/sub, linear maps, inversion). It
-imports nothing of JAX or of the JAX package.
+device pairing's tower kernels (Fq add/sub, linear maps, the whole Fq12
+multiply, inversion). It imports nothing of JAX or of the JAX package.
 
 Public API (the reference's surface, halo2_verifier_tpu/__init__.py):
 

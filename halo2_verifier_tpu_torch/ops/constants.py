@@ -108,6 +108,25 @@ def fq_edge_triples(strides):
                    for s in strides for j in range(n)]
 
 
+def fq12_edge_pairs():
+    """Fq12 operand pairs at the fused Fq12 multiply's edges, each
+    operand 12 canonical Fq values in the coefficient stack's order:
+    zero, a lone nonzero coefficient, each FOLD_EDGE pair in coefficient
+    0 of the two operands (row 0 of both operand maps is coefficient 0
+    alone, so product 0 multiplies that pair), and every FQ_EDGE value in
+    every coefficient of both operands."""
+    e, n = FQ_EDGE, len(FQ_EDGE)
+    lone = tuple(e[2] if c == 5 else 0 for c in range(12))
+    pairs = [((0,) * 12, (0,) * 12), (lone, tuple(e[:12])),
+             (tuple(e[:12]), lone)]
+    pairs += [((x,) + tuple(e[3:14]), (y,) + tuple(e[-11:]))
+              for x, y in FOLD_EDGE]
+    pairs += [(tuple(e[(j + 5 * c) % n] for c in range(12)),
+               tuple(e[(j + 7 * c + 1) % n] for c in range(12)))
+              for j in range(n)]
+    return pairs
+
+
 def sqrt_edge_xs():
     """x operands at the square root's edges: FQ_EDGE, and the first x
     whose x^3 + 3 is a non-residue (off the curve: its root fails the

@@ -65,7 +65,8 @@ _libs: dict = {}
 # launches and output lanes per kernel since the last reset_launches()
 LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
             "point_add": 0, "point_double": 0, "mont_mul8": 0,
-            "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq_inv": 0}
+            "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq12_mul": 0,
+            "fq_inv": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
@@ -150,11 +151,15 @@ def _so_path(build_dir: str, src: str, tag: str) -> str:
 
 def kernel_label(mangled: str) -> str:
     """A readable name for a kernel's mangled symbol, e.g.
-    point_add_kernel<Limbs16>, mont_mul_kernel<0>."""
+    point_add_kernel<Limbs16>, mont_mul_kernel<0>. Every digit run is
+    read as a length-prefixed name; the shortest such name that ends in
+    _kernel is the kernel's (a longer one spans a digit inside an
+    anonymous namespace's own name, such as _GLOBAL__N__40dd78b_...)."""
     names = [mangled[i + len(m.group()):i + len(m.group()) + int(m.group())]
              for i in range(len(mangled))
              if (m := re.match(r"\d+", mangled[i:]))]
-    name = next((n for n in names if n.endswith("_kernel")), None)
+    name = min((n for n in names if n.endswith("_kernel")), key=len,
+               default=None)
     if name is None:
         return mangled
     arg = (re.search(r"_kernelILi(\d+)E", mangled)
@@ -259,6 +264,7 @@ SIGNATURES = {
     "tower.cu": {
         "h2v_fq_addsub": [_VP, _LL, _VP, _LL, _VP, _LL, _CI, _VP],
         "h2v_fq_linmap": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
+        "h2v_fq12_mul": [_VP, _VP, _VP, _LL, _VP],
         "h2v_fq_inv": [_VP, _VP, _LL, _CI, _VP],
     },
 }
@@ -522,9 +528,10 @@ def fq_addsub(a, b, op: int):
 def fq_linmap(x, m):
     """T2: the exact linear map out[:, o] = sum_j m[o, j] x[:, j] mod q
     on (16, k, B) int32 canonical Montgomery limbs x and an (n_out, k)
-    int32 matrix m of small coefficients (a thread adds or subtracts x_j
-    |m[o, j]| times), both contiguous on the card; canonical
-    (16, n_out, B) out."""
+    int32 matrix m of small coefficients, both contiguous on the card;
+    canonical (16, n_out, B) out. The kernel's column sums are exact for
+    rows of m whose |coefficients| sum to at most 256 (the caller's
+    contract: ops/pairing.py checks every map before it uploads it)."""
     dev = x.device
     if not x.is_cuda or not m.is_cuda or m.device != dev:
         raise ValueError("fq_linmap: expects CUDA tensors on one device")
@@ -548,6 +555,40 @@ def fq_linmap(x, m):
                                k, n_out, width, _stream(dev))
     _raise_on(rc, "fq_linmap")
     _count("fq_linmap", n_out * width, (x, m))
+    return out
+
+
+FQ12_COEFS = 12  # an Fq12 element's Fq coefficients
+
+
+def fq12_mul(a, b):
+    """The Fq12 multiply in one launch: a, b (16, 12, B) int32 stacks of
+    canonical Montgomery coefficients (limb, coefficient, lane), both
+    contiguous on the card (b may be a, for a square); returns their
+    product as a new (16, 12, B) stack, canonical."""
+    dev = a.device
+    for t in (a, b):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("fq12_mul: expects CUDA tensors on one device")
+        if (t.dtype != torch.int32 or t.dim() != 3
+                or t.shape[:2] != (NLIMBS, FQ12_COEFS)
+                or not t.is_contiguous()):
+            raise ValueError("fq12_mul: expects contiguous (16, 12, B) "
+                             f"int32 stacks, got {tuple(t.shape)} {t.dtype}")
+    if a.shape != b.shape:
+        raise ValueError("fq12_mul: operand shapes differ")
+    if a.numel() >= MAX_ELEMENTS:
+        raise ValueError("fq12_mul: a tensor of 2^31 or more elements")
+    out = torch.empty_like(a)
+    width = a.shape[2]
+    if width == 0:
+        return out
+    lib = _lib("tower.cu")
+    with torch.cuda.device(dev):
+        rc = lib.h2v_fq12_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              width, _stream(dev))
+    _raise_on(rc, "fq12_mul")
+    _count("fq12_mul", width, (a, b))
     return out
 
 

@@ -11,19 +11,25 @@ The Miller loops of all pairs run in parallel lanes (one lane per pair);
 the lane product and the one final exponentiation run at width 1.
 
 Eager PyTorch launches every tensor op on its own, where XLA fused the
-reference's program into one, so the three pieces that would otherwise
-cost hundreds of small launches each have a kernel of their own
+reference's program into one, so the pieces that would otherwise cost
+hundreds of small launches each have a kernel of their own
 (csrc/tower.cu, through ops/kernels.py), used for CUDA tensors:
 - T1 `fq_addsub`: the Fq add, subtract and negate of `_fadd`, `_fsub`,
   `_fneg` (plain versions: `field.add_body`, `sub_body`, `neg_body`);
 - T2 `fq_linmap`: the exact linear map `_linear_combine` (plain version:
   `linear_combine_plain`, the reference's two integer sums and its
   `_reduce_mod_p`, in int64 so that it is exact on any device);
+- `fq12_mul`: the whole Fq12 multiply, its two operand maps, 54 products
+  and recombination map in one launch, on (NLIMBS, 12, B) coefficient
+  stacks (`fq12_mul_stack`; plain version: `fq12_mul_plain`, the
+  reference's composition on the plain versions);
 - T3 `fq_inv`: the Fermat inversion of `_finv`, through `field.inv_mont`
   (plain version: `field.inv_mont_body`).
 CPU tensors take the plain versions. Limbs are (NLIMBS, B) int32
 canonical Montgomery residues at every function boundary, as in
-ops/field.py.
+ops/field.py. An Fq12 value that only multiplies stays a coefficient
+stack: the Miller loop's accumulator and the hard part's exponentiation
+stack once on entry and split into the reference's tuple tree on exit.
 
 `lax.scan` and `lax.cond` over the static bit arrays become Python loops
 over the same bits; a zero exponent bit skips the product the reference
@@ -186,10 +192,11 @@ def fq2_one(b, device):
 #
 # The tower's multiply formulas are (operand prep) -> (independent Fq
 # products) -> (recombination), where prep and recombination are LINEAR
-# maps with small integer coefficients. Each map is one T2 launch on the
-# card; its plain version is the reference's: two integer sums over the
-# stacked 16-bit limbs (far below 2^32) and one batched exact mod-P
-# reduction.
+# maps with small integer coefficients. On the card the Fq12 multiply
+# runs its three maps inside its one fused launch, and `_linear_combine`
+# is one T2 launch; the plain version of a map is the reference's: two
+# integer sums over the stacked 16-bit limbs (far below 2^32) and one
+# batched exact mod-P reduction.
 
 
 _GEOM16 = ((1 << 256) - 1) // ((1 << 16) - 1)  # sum(2^(16 i), i<16)
@@ -320,12 +327,12 @@ def _linear_combine(X, M):
 
 
 def _mul_cols(A, B):
-    """(NLIMBS, k, B) x (NLIMBS, k, B) Montgomery products as ONE wide
-    multiply."""
+    """(NLIMBS, k, B) x (NLIMBS, k, B) Montgomery products on the plain
+    body, as one wide product (any device)."""
     nl, k, b = A.shape
-    out = fm.mont_mul(A.reshape(nl, k * b).contiguous(),
-                      B.reshape(nl, k * b).contiguous(), FQ)
-    return out.reshape(nl, k, b)
+    out = fm.mont_mul_body(A.reshape(nl, k * b).to(I64),
+                           B.reshape(nl, k * b).to(I64), FQ)
+    return out.to(I32).reshape(nl, k, b)
 
 
 # --- symbolic derivation of the Fq12-multiply matrices -----------------
@@ -512,18 +519,40 @@ def fq6_one(b, device):
 # = 54 Fq lanes in a single mont_mul.
 
 
+def fq12_mul_plain(A, B):
+    """The plain version of the fused Fq12 multiply, on (NLIMBS, 12, B)
+    int32 coefficient stacks (any device): the reference's composition,
+    operand maps MA and MB, the 54 Montgomery products, the recombination
+    map MC (derived symbolically from the oracle's Karatsuba/Toom
+    formulas at import)."""
+    A = linear_combine_plain(A, _FQ12_MA)
+    Bv = linear_combine_plain(B, _FQ12_MB)
+    return linear_combine_plain(_mul_cols(A, Bv), _FQ12_MC)
+
+
+def fq12_mul_stack(A, B):
+    """The Fq12 multiply on (NLIMBS, 12, B) coefficient stacks (B may be
+    A, for a square): one fused launch for CUDA tensors, the plain
+    version for CPU ones."""
+    if A.is_cuda:
+        return kernels.fq12_mul(A, B)
+    return fq12_mul_plain(A, B)
+
+
+def _fq12_one_stack(b, device):
+    X = torch.zeros((NLIMBS, 12, b), dtype=I32, device=device)
+    X[:, 0] = _one(b, device)
+    return X
+
+
 def fq12_mul(a, b):
-    """One 54-lane Montgomery multiply between two linear maps (operand
-    prep MA/MB, recombination MC — derived symbolically from the oracle's
-    Karatsuba/Toom formulas at import)."""
-    A = _linear_combine(_fq12_coeff_stack(a), _FQ12_MA)
-    Bv = _linear_combine(_fq12_coeff_stack(b), _FQ12_MB)
-    out = _linear_combine(_mul_cols(A, Bv), _FQ12_MC)
-    return _fq12_from_stack(out)
+    return _fq12_from_stack(fq12_mul_stack(_fq12_coeff_stack(a),
+                                           _fq12_coeff_stack(b)))
 
 
 def fq12_square(a):
-    return fq12_mul(a, a)
+    A = _fq12_coeff_stack(a)
+    return _fq12_from_stack(fq12_mul_stack(A, A))
 
 
 def fq12_conj(a):
@@ -697,21 +726,22 @@ def miller_loop_lanes(px, py, qx, qy):
     engine skips them, oracle miller_loop)."""
     b = px.shape[1]
     q = ((qx[0], qx[1]), (qy[0], qy[1]))
-    f, t = fq12_one(b, px.device), q
+    # f only multiplies: it stays a coefficient stack
+    f, t = _fq12_one_stack(b, px.device), q
     for bit in _ATE_BITS:
-        f = fq12_square(f)
+        f = fq12_mul_stack(f, f)
         t, line = _line_double(t, px, py)
-        f = fq12_mul(f, line)
+        f = fq12_mul_stack(f, _fq12_coeff_stack(line))
         if bit:
             t, line = _line_add(t, q, px, py)
-            f = fq12_mul(f, line)
+            f = fq12_mul_stack(f, _fq12_coeff_stack(line))
     q1 = _g2_frobenius_twist(q)
     q2 = _g2_frobenius_twist(q1)
     q2 = (q2[0], fq2_neg(q2[1]))
     t, line = _line_add(t, q1, px, py)
-    f = fq12_mul(f, line)
+    f = fq12_mul_stack(f, _fq12_coeff_stack(line))
     _, line = _line_add(t, q2, px, py)
-    return fq12_mul(f, line)
+    return _fq12_from_stack(fq12_mul_stack(f, _fq12_coeff_stack(line)))
 
 
 # ------------------------------------------------------ final exponentiation
@@ -726,15 +756,16 @@ _HARD_BITS = np.asarray(
 def fq12_pow_bits(a, bits):
     """Square-and-multiply over an LSB-first static bit array; a zero bit
     skips the product the reference computes and discards, and the last
-    squaring, whose result the reference discards, is not computed."""
-    b, dev = a[0][0][0].shape[1], a[0][0][0].device
-    result, base = fq12_one(b, dev), a
+    squaring, whose result the reference discards, is not computed. The
+    result and the base stay coefficient stacks in between."""
+    base = _fq12_coeff_stack(a)
+    result = _fq12_one_stack(base.shape[2], base.device)
     for i, bit in enumerate(bits):
         if bit:
-            result = fq12_mul(result, base)
+            result = fq12_mul_stack(result, base)
         if i + 1 < len(bits):
-            base = fq12_square(base)
-    return result
+            base = fq12_mul_stack(base, base)
+    return _fq12_from_stack(result)
 
 
 def final_exponentiation(f):

@@ -7,7 +7,9 @@ together), which reports ptxas' registers and spill bytes and the SASS
 counts of `cuobjdump -sass`; a build that spills is reported and not
 timed. Every other build is checked bit for bit against the plain version
 and timed with CUDA events, all variants of one launch in turns (forward,
-then backward), with seeded canonical operands of the main path's shapes.
+then backward), with seeded canonical operands of the main path's shapes,
+and with the profiler, which gives the device time of a call's kernels
+(CUDA events around a few lanes' launches time the host's dispatch).
 
 point_add: the masked point adds, K2 (csrc/point_add.cu, 16-bit limbs)
 and K5 (csrc/point_add8.cu, 8-bit limbs in float32), per body and launch
@@ -24,6 +26,18 @@ h2v_sqrt_principal), per block size, exponent window and lanes per thread
 (mont_mul.cu SqrtShape), at the main path's 15,360 lanes (15 points x
 1,024 proofs) and at 32 lanes (one warp: one chain's latency).
 
+fq12_mul: the device pairing's fused Fq12 multiply (csrc/tower.cu
+h2v_fq12_mul) per lanes per block and threads per output of its
+recombination map (tower.cu Fq12Shape), at the pairing's 1 and 2 lanes
+and at 16,384; beside it T2 (h2v_fq_linmap) on the recombination map MC
+at 2 and 16,384 lanes, in the shipped shape's build alone. A version without h2v_fq12_mul (a --parent from
+before it) runs the multiply as its four launches: T2 for MA, T2 for
+MB, the 54-lane K1 product, T2 for MC.
+
+fq_inv: the Fermat inversion T3 (tower.cu h2v_fq_inv) per block size and
+exponent window (tower.cu InvShape), at the pairing's 2 lanes and at
+16,384, for Fq (and Fr at 16,384).
+
 --parent NAME=DIR (repeatable) adds another version's csrc/ directory as
 a variant, built and timed as it stands, to compare versions on one card
 in one call (unpack one with `git archive <commit>
@@ -33,13 +47,14 @@ halo2_verifier_tpu_torch/csrc` into a gitignored directory such as
 Prints one JSON line per variant and launch, then the table and the
 card's name and power limit. Needs a CUDA card.
 
-Usage: python3 sweep_kernels.py {point_add,sqrt} [--reps N]
-                                [--parent NAME=DIR ...]
+Usage: python3 sweep_kernels.py {point_add,sqrt,fq12_mul,fq_inv}
+                                [--reps N] [--parent NAME=DIR ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -54,6 +69,7 @@ FOREST_LANES = 266240
 FOREST_FRONTIER = 524288
 ACTIVE_SHARE = 0.97
 SQRT_LANES = (15360, 32)
+TOWER_LANES = (1, 2, 16384)
 
 
 class PointAdd:
@@ -61,6 +77,7 @@ class PointAdd:
     then caps of 168 and 128 registers."""
 
     header = "point.cuh"
+    build_sources = ("point_add.cu", "point_add8.cu")
     sources = {"point_add": "point_add.cu", "point_add8": "point_add8.cu"}
     labels = dict.fromkeys(sources, "point_add_kernel")
     variants = [(body, shape) for body in ("unrolled", "rolled")
@@ -112,7 +129,8 @@ class PointAdd:
                 lambda ops=ops, args=args: ops.masked_add_plain(*args))
 
     @staticmethod
-    def launch(torch, fn, kname, args):
+    def launch(torch, entries, kname, args):
+        fn = entries[f"h2v_{kname}"]
         p, q, mask, iL, iR = args
         rows = 32 if kname == "point_add8" else 16
         dtype = torch.float32 if kname == "point_add8" else torch.int32
@@ -141,6 +159,7 @@ class Sqrt:
     in one thread)."""
 
     header = "mont_mul.cu"
+    build_sources = ("mont_mul.cu",)
     sources = {"sqrt_principal": "mont_mul.cu"}
     labels = {"sqrt_principal": "sqrt_principal_kernel"}
     variants = ([(t, 4, 1) for t in (32, 64, 128, 256)]
@@ -180,7 +199,8 @@ class Sqrt:
                 lambda x=x: decomp.y_principal_plain(x))
 
     @staticmethod
-    def launch(torch, fn, _kname, args):
+    def launch(torch, entries, _kname, args):
+        fn = entries["h2v_sqrt_principal"]
         (xs,) = args
         out = torch.empty_like(xs)
 
@@ -188,6 +208,147 @@ class Sqrt:
             return fn(xs.data_ptr(), out.data_ptr(), xs.shape[1],
                       torch.cuda.current_stream().cuda_stream)
         return run, out
+
+
+def canonical(torch, np, rng, shape, dev):
+    """Seeded canonical Fq elements as int32 limbs of `shape` (16, ...)."""
+    from halo2_verifier_tpu_torch.ops.constants import P
+
+    limbs = rng.integers(0, 1 << 16, size=shape, dtype=np.int64)
+    limbs[15] = rng.integers(0, P >> 240, size=shape[1:])
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
+class Fq12Mul:
+    """The fused Fq12 multiply per (lanes per block, threads per MC
+    output), the shipped shape first; and T2 on MC, which no shape field
+    changes, so it is timed in the first variant's build alone, beside
+    the parent's T2."""
+
+    header = "tower.cu"
+    build_sources = ("tower.cu", "mont_mul.cu")
+    sources = {"fq12_mul": "tower.cu", "fq_linmap": "tower.cu"}
+    labels = {"fq12_mul": "fq12_mul_kernel", "fq_linmap": "fq_linmap_kernel"}
+    variants = [(2, 4), (1, 1), (1, 4), (4, 4), (8, 2), (8, 4)]
+    shape_free = ("fq_linmap",)
+    fields = {"kLanes": r"static constexpr int kLanes = \d+;",
+              "kSplit": r"static constexpr int kSplit = \d+;"}
+    matches = 1
+    composed = "fq_linmap_kernel x3 + mont_mul_kernel<0> (4 launches)"
+
+    @staticmethod
+    def name(v):
+        return f"l{v[0]}_s{v[1]}"
+
+    @staticmethod
+    def values(v):
+        return {"kLanes": f"int kLanes = {v[0]};",
+                "kSplit": f"int kSplit = {v[1]};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        from halo2_verifier_tpu_torch.ops import pairing as tp
+
+        rng = np.random.default_rng(8)
+        width = max(TOWER_LANES)
+        a = canonical(torch, np, rng, (16, 12, width), dev)
+        b = canonical(torch, np, rng, (16, 12, width), dev)
+        mc = canonical(torch, np, rng, (16, 54, width), dev)
+        for lanes in TOWER_LANES:
+            x, y = (t[:, :, :lanes].contiguous() for t in (a, b))
+            yield ("fq12_mul", str(lanes)), (x, y), (
+                lambda x=x, y=y: tp.fq12_mul_plain(x, y))
+        for lanes in TOWER_LANES[1:]:
+            x = mc[:, :, :lanes].contiguous()
+            yield ("fq_linmap", f"mc_{lanes}"), (x,), (
+                lambda x=x: tp.linear_combine_plain(x, tp._FQ12_MC))
+
+    @staticmethod
+    def launch(torch, entries, kname, args):
+        from halo2_verifier_tpu_torch.ops import pairing as tp
+
+        dev = args[0].device
+        stream = torch.cuda.current_stream().cuda_stream
+        maps = {n: tp._map_tensor(getattr(tp, n), dev)
+                for n in ("_FQ12_MA", "_FQ12_MB", "_FQ12_MC")}
+        linmap = entries["h2v_fq_linmap"]
+
+        def lin(x, m, out):
+            return linmap(x.data_ptr(), m.data_ptr(), out.data_ptr(),
+                          x.shape[1], m.shape[0], x.shape[2], stream)
+
+        if kname == "fq_linmap":
+            (x,) = args
+            out = torch.empty((16, 12, x.shape[2]), dtype=torch.int32,
+                              device=dev)
+            return (lambda: lin(x, maps["_FQ12_MC"], out)), out
+        a, b = args
+        width = a.shape[2]
+        out = torch.empty_like(a)
+        fused = entries.get("h2v_fq12_mul")
+        if fused is not None:
+            return (lambda: fused(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  width, stream)), out
+        ops = torch.empty((3, 16, 54, width), dtype=torch.int32, device=dev)
+        mont_mul = entries["h2v_mont_mul"]
+
+        def composed():
+            return (lin(a, maps["_FQ12_MA"], ops[0])
+                    or lin(b, maps["_FQ12_MB"], ops[1])
+                    or mont_mul(ops[0].data_ptr(), ops[1].data_ptr(),
+                                ops[2].data_ptr(), 54 * width, 0, stream)
+                    or lin(ops[2], maps["_FQ12_MC"], out))
+        return composed, out
+
+
+class FqInv:
+    """T3 per (block size, exponent window): the window at 64-thread
+    blocks, then the block size at a 3-bit window."""
+
+    header = "tower.cu"
+    build_sources = ("tower.cu",)
+    sources = {"fq_inv": "tower.cu"}
+    labels = {"fq_inv": "fq_inv_kernel"}
+    variants = [(64, 3), (64, 2), (64, 4), (32, 3), (128, 3)]
+    fields = {"kInvThreads": r"static constexpr int kInvThreads = \d+;",
+              "kWindow": r"static constexpr int kWindow = \d+;"}
+    matches = 1
+
+    @staticmethod
+    def name(v):
+        return f"t{v[0]}_w{v[1]}"
+
+    @staticmethod
+    def values(v):
+        return {"kInvThreads": f"int kInvThreads = {v[0]};",
+                "kWindow": f"int kWindow = {v[1]};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        from halo2_verifier_tpu_torch.ops import field as fm
+
+        rng = np.random.default_rng(9)
+        x = canonical(torch, np, rng, (16, max(TOWER_LANES)), dev)
+        x[:, 0] = 0  # inv(0) = 0
+        for spec, lanes in ((fm.FQ, 2), (fm.FQ, 16384), (fm.FR, 16384)):
+            a = x[:, :lanes].contiguous()
+            tag = f"{lanes}" + ("_fr" if spec is fm.FR else "")
+            yield ("fq_inv", tag), (a, spec.kernel_id), (
+                lambda a=a, spec=spec: fm.inv_mont_body(a.long(),
+                                                        spec).int())
+
+    @staticmethod
+    def launch(torch, entries, _kname, args):
+        fn = entries["h2v_fq_inv"]
+        a, field_id = args
+        out = torch.empty_like(a)
+        return (lambda: fn(a.data_ptr(), out.data_ptr(), a.shape[1],
+                           field_id,
+                           torch.cuda.current_stream().cuda_stream)), out
+
+
+KINDS = {"point_add": PointAdd, "sqrt": Sqrt, "fq12_mul": Fq12Mul,
+         "fq_inv": FqInv}
 
 
 def frontier(torch, np, rng, width, dev):
@@ -226,8 +387,10 @@ def make_variant(kind, csrc, root, name, v=None):
 def build_all(kernels, kind, variants):
     """kernels.build_report of the kind's sources for every variant, the
     variants' builds all started together; returns {(variant, kernel):
-    (C entry, report)}."""
-    sources = tuple(sorted(set(kind.sources.values())))
+    (the variant's C entries by name, report)}. A version that lacks a
+    kernel (a --parent from before it) reports the kind's `composed`
+    stand-in."""
+    sources = kind.build_sources
 
     def one(src_dir):
         out_dir = os.path.join(os.path.dirname(src_dir), "build")
@@ -238,17 +401,47 @@ def build_all(kernels, kind, variants):
         done = dict(zip(variants, ex.map(one, variants.values())))
     built = {}
     for name, (report, libs) in done.items():
+        entries = {}
+        for src in sources:
+            lib = ctypes.CDLL(libs[src][0])
+            for entry, argtypes in kernels.SIGNATURES[src].items():
+                fn = getattr(lib, entry, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                    entries[entry] = fn
         for kname, src in kind.sources.items():
-            label, rep = next((k, r) for k, r in report[src].items()
-                              if k.startswith(kind.labels[kname]))
-            entry = getattr(kernels.bind(libs[src][0], src), f"h2v_{kname}")
-            built[(name, kname)] = (entry, {"kernel": label, **rep})
+            found = [(k, r) for k, r in report[src].items()
+                     if k.startswith(kind.labels[kname])]
+            if not found and not hasattr(kind, "composed"):
+                raise RuntimeError(f"{name}: no {kind.labels[kname]} in "
+                                   f"{src}'s build, only {list(report[src])}")
+            rep = ({"kernel": found[0][0], **found[0][1]} if found
+                   else {"kernel": kind.composed})
+            built[(name, kname)] = (entries, rep)
     return built
+
+
+def device_ms(torch, run, reps):
+    """Device milliseconds per call of run(): the profiler's kernel
+    events over `reps` calls, summed (a composition's launches
+    together)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset")))
+    return us / reps / 1e3 if us else None
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("point_add", "sqrt"))
+    ap.add_argument("kernel", choices=tuple(KINDS))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--parent", action="append", default=[],
                     metavar="NAME=DIR",
@@ -266,7 +459,7 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     from halo2_verifier_tpu_torch.ops import kernels
 
-    kind = PointAdd if args.kernel == "point_add" else Sqrt
+    kind = KINDS[args.kernel]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -283,14 +476,17 @@ def main(argv=None):
     for (kname, launch_name), case, plain in kind.cases(torch, np, dev):
         want = plain()
         runs = {}
-        for name in variants:
-            entry, rep = built[(name, kname)]
+        names = list(variants)
+        if kname in getattr(kind, "shape_free", ()):
+            names = list(parents) + [kind.name(kind.variants[0])]
+        for name in names:
+            entries, rep = built[(name, kname)]
             row = {"kernel": kname, "launch": launch_name, "variant": name,
                    **rep}
             results.append(row)
             if rep.get("spill_bytes"):
                 continue
-            fn, out = kind.launch(torch, entry, kname, case)
+            fn, out = kind.launch(torch, entries, kname, case)
 
             def run(fn=fn):
                 rc = fn()
@@ -322,17 +518,20 @@ def main(argv=None):
                 row[f"ms_round{rnd}"] = start.elapsed_time(stop) / args.reps
         for run, row in runs.values():
             row["ms"] = (row["ms_round0"] + row["ms_round1"]) / 2
+            row["device_ms"] = device_ms(torch, run, args.reps)
         del want
     for row in results:
         print(json.dumps({**row, "card": smi}), flush=True)
-    print(f"{'kernel':<27}{'launch':<8}{'variant':<17}{'regs':>5}"
-          f"{'spill':>6}{'sass':>6}{'ms':>9}  equal")
+    print(f"{'kernel':<27}{'launch':<10}{'variant':<17}{'regs':>5}"
+          f"{'spill':>6}{'sass':>6}{'ms':>9}{'device_ms':>11}  equal")
     for r in results:
         ms = f"{r['ms']:.4f}" if "ms" in r else "-"
-        print(f"{r['kernel']:<27}{r['launch']:<8}{r['variant']:<17}"
+        dms = (f"{r['device_ms']:.5f}" if r.get("device_ms") is not None
+               else "-")
+        print(f"{r['kernel']:<27}{r['launch']:<10}{r['variant']:<17}"
               f"{str(r.get('registers')):>5}{str(r.get('spill_bytes')):>6}"
-              f"{str(r.get('sass')):>6}{ms:>9}  {r.get('equal_to_plain')}"
-              f"  {r.get('launch_error', '')}")
+              f"{str(r.get('sass')):>6}{ms:>9}{dms:>11}  "
+              f"{r.get('equal_to_plain')}  {r.get('launch_error', '')}")
     print(smi)
     bad = [r for r in results
            if r.get("equal_to_plain") is False or "launch_error" in r]

@@ -19,8 +19,8 @@ from halo2_verifier_tpu_torch.ops import hostpairing as hp
 from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
 from halo2_verifier_tpu_torch.ops import pairing as tp
 from halo2_verifier_tpu_torch.ops.constants import (
-    FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, fq_edge_triples,
-    sqrt_edge_xs)
+    FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, fq12_edge_pairs,
+    fq_edge_triples, sqrt_edge_xs)
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -243,6 +243,12 @@ def test_wrappers_refuse_cpu_tensors(cuda):
     with pytest.raises(ValueError):
         kernels.fq_linmap(p16[0].reshape(16, 1, 4), tp._map_tensor(
             tp._FQ12_MA, cuda))
+    x = torch.zeros((16, 12, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.fq12_mul(x, x)
+    with pytest.raises(ValueError):  # not a (16, 12, B) stack
+        kernels.fq12_mul(x[:, :6].contiguous().to(cuda),
+                         x[:, :6].contiguous().to(cuda))
 
 
 @pytest.mark.parametrize("backend", ["u16", "f8"])
@@ -405,10 +411,43 @@ def test_fq_linmap_kernel_matches_plain(cuda, name):
         assert torch.equal(got, tp.linear_combine_plain(x, M))
 
 
+def _fq12_stacks(width, seed, dev):
+    """Two (16, 12, width) int32 coefficient stacks: the edge pairs of
+    constants.fq12_edge_pairs in the first lanes, seeded random canonical
+    values after."""
+    pairs = fq12_edge_pairs()
+    rng = np.random.default_rng(seed)
+    stacks = []
+    for side in (0, 1):
+        vals = [[p[side][c] for p in pairs[:width]] for c in range(12)]
+        for c in range(12):
+            vals[c] += [int.from_bytes(rng.bytes(32), "little") % P
+                        for _ in range(width - len(vals[c]))]
+        stacks.append(torch.stack([_limbs_t(v, dev) for v in vals], dim=1))
+    return stacks
+
+
+@pytest.mark.parametrize("width", [1, 2, 16384])
+def test_fq12_mul_kernel_matches_plain(cuda, width):
+    """The fused Fq12 multiply, and its square (one operand), at the
+    pairing's widths and at 16,384 lanes, edge pairs included, against
+    the plain composition; one launch each."""
+    a, b = _fq12_stacks(width, 24 + width, cuda)
+    before = kernels.LAUNCHES["fq12_mul"]
+    got = tp.fq12_mul_stack(a, b)
+    square = tp.fq12_mul_stack(a, a)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fq12_mul"] == before + 2
+    assert torch.equal(got, tp.fq12_mul_plain(a, b))
+    assert torch.equal(square, tp.fq12_mul_plain(a, a))
+
+
 @pytest.mark.parametrize("spec", [fm.FQ, fm.FR], ids=["fq", "fr"])
 def test_fq_inv_kernel_matches_plain(cuda, spec):
-    """T3 through field.inv_mont (0 -> 0 included) against the plain body."""
+    """T3 through field.inv_mont (0, 1, N - 1, N - 2 and the FOLD_EDGE
+    values among the operands) against the plain body; inv(0) = 0."""
     vals = [v % spec.modulus for v in _fq_operands(256, 23)[0]]
+    vals[1:4] = [1, spec.modulus - 1, spec.modulus - 2]
     a = _limbs_t(vals, cuda)
     before = kernels.LAUNCHES["fq_inv"]
     got = fm.inv_mont(a, spec)
@@ -419,9 +458,16 @@ def test_fq_inv_kernel_matches_plain(cuda, spec):
     assert int(got[:, vals.index(0)].abs().sum()) == 0
 
 
+# kernel launches of one device pairing check of two live pairs
+PAIRING_LAUNCHES = {"mont_mul": 587, "fq_addsub": 5335, "fq12_mul": 1318,
+                    "fq_inv": 103}
+
+
 def test_device_pairing_on_card(cuda):
     """The device pairing on the card: Miller lanes equal the oracle's,
-    the bilinearity verdicts the oracle's, through K1 and T1-T3."""
+    the bilinearity verdicts the oracle's; a check launches K1, T1, the
+    fused Fq12 multiply and T3 as many times as the dispatch counts on
+    the CPU (tests/test_torch_fq12_fused.py), and no T2."""
     pairs = [(hc.g1_mul(G1_GEN, 3), hc.g2_mul(G2_GEN, 5)),
              (hc.g1_mul(G1_GEN, 7), hc.g2_mul(G2_GEN, 11))]
     g1 = np.stack([tp.mont_cols([p[0] for p, _ in pairs]),
@@ -437,6 +483,8 @@ def test_device_pairing_on_card(cuda):
             (hc.g1_neg(hc.g1_mul(G1_GEN, 78)), G2_GEN)]
     bad = [good[0], (hc.g1_neg(hc.g1_mul(G1_GEN, 79)), G2_GEN)]
     assert tp.pairing_check_device(good) is True
+    kernels.reset_launches()
     assert tp.pairing_check_device(bad, cuda) is False
-    assert all(kernels.LAUNCHES[k] > 0
-               for k in ("mont_mul", "fq_addsub", "fq_linmap", "fq_inv"))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == \
+        PAIRING_LAUNCHES

@@ -167,13 +167,16 @@ def test_kernel_constants_match_python():
     assert _cuda_words(mcu, "SQRT_EXP") == _words((P + 1) // 4)
     assert int(re.search(r"kSqrtBits = (\d+);", mcu).group(1)) == (
         ((P + 1) // 4).bit_length())
-    # the square root's radix-2^29 form, Montgomery radix R' = 2^261
+    # the square root's radix-2^29 form (csrc/mont29.cuh, for Fq and Fr),
+    # Montgomery radix R' = 2^261
+    with open(os.path.join(kernels.CSRC_DIR, "mont29.cuh")) as f:
+        m29 = f.read()
     r29 = (1 << 261) % P
-    assert _cuda_words(mcu, "Q29") == _limbs29(P)
+    assert _cuda_words(m29, "MOD29") == _limbs29(P) + _limbs29(R)
     assert _cuda_words(mcu, "R2_29") == _limbs29(r29 * r29 % P)
     assert _cuda_words(mcu, "B3_29") == _limbs29(3 * r29 % P)
-    assert int(re.search(r"kQInv29 = 0x([0-9a-f]+)u;", mcu).group(1),
-               16) == (-pow(P, -1, 1 << 29)) % (1 << 29)
+    assert _cuda_words(m29, "NINV29") == [
+        (-pow(n, -1, 1 << 29)) % (1 << 29) for n in (P, R)]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -239,6 +242,10 @@ def test_build_report_parsers():
     assert kernels.kernel_label(
         "_ZN12_GLOBAL__N_116mont_mul8_kernelILi0EEEvPKfS2_Pfj") == (
             "mont_mul8_kernel<0>")
+    # an anonymous namespace named after its file, with digits of its own
+    assert kernels.kernel_label(
+        "_ZN39_GLOBAL__N__40dd78b_8_tower_cu_bff71b4a13fq_inv_kernelILi1ELi3"
+        "EEEvPKiPij") == "fq_inv_kernel<1>"
     assert kernels.ptxas_report(PTXAS_LOG) == {
         "point_add_kernel<Limbs8>": {"registers": 128, "spill_bytes": 12},
         "mont_mul_kernel<1>": {"registers": 32, "spill_bytes": 0}}
