@@ -27,8 +27,9 @@ Phases, one output line each (JSON unless noted):
    affine points and every 8-bit-limb output against the re-limbed
    16-bit-limb kernel's; the 8-bit-limb outputs' range; the device
    pairing's tower kernels (Fq add/sub/neg, the Fq12 linear maps, the
-   fused Fq12 multiply and square, the Fermat inversion for Fq and Fr)
-   at the pairing's widths and at 16,384 lanes, with edge operands; the
+   fused Fq12 multiply and square, the Fermat inversion for Fq and Fr,
+   the Miller step in both modes) at the pairing's widths and at 16,384
+   lanes, with edge operands; the
    device pairing check: Miller lanes against the host oracle, good and
    tampered verdicts against the host pairing, its time beside the host
    pairing's, launches per check by kernel (held to the counts of the
@@ -50,10 +51,11 @@ Phases, one output line each (JSON unless noted):
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
    device, in either package); the forest stream once more with
-   pairing="device" (8 batches; K1, T1, the fused Fq12 multiply and T3
-   join the forest's kernels), its tampered 64-proof batch, and
-   strategy="single" with the device pairing on 8 proofs, one tampered
-   (only K1, T1, the Fq12 multiply and T3 launch: the single strategy's
+   pairing="device" (8 batches; K1, T1, the fused Fq12 multiply, T3 and
+   the Miller step join the forest's kernels), its tampered 64-proof
+   batch, and strategy="single" with the device pairing on 8 proofs, one
+   tampered (only K1, T1, the Fq12 multiply, T3 and the Miller step
+   launch: the single strategy's
    MSMs run on the host); T2 through its entry, ops/pairing.py
    _linear_combine, on the three Fq12 maps at 16,384 lanes (the pairing
    runs its maps inside the fused multiply);
@@ -78,6 +80,7 @@ Usage: python3 chip_smoke.py [--batches N]
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -102,8 +105,8 @@ SINGLE_TAMPER_INDEX = 5
 PAIRING_REPS = 5                     # checks timed, median reported
 # kernel launches of one device pairing check of two live pairs, as the
 # dispatch counts them (tests/test_torch_fq12_fused.py)
-PAIRING_LAUNCHES = {"mont_mul": 587, "fq_addsub": 5335, "fq_linmap": 0,
-                    "fq12_mul": 1318, "fq_inv": 103}
+PAIRING_LAUNCHES = {"mont_mul": 13, "fq_addsub": 501, "fq_linmap": 0,
+                    "fq12_mul": 1318, "fq_inv": 1, "miller_step": 102}
 
 # Bound model: the least time of an operation count is the longest of the
 # SM's pipes that must run it (NVIDIA CUDA C++ Programming Guide,
@@ -182,6 +185,22 @@ def inv_chain_counts(e):
 
     return min((window_chain_counts(e, w) for w in range(1, 9)),
                key=lambda c: ops((c[0], MONT_SQR), (c[1], MONT_MUL))[0])
+
+
+def ops_miller_step(mode):
+    """(multiply-adds, ALU, FP32) of one Miller step on one lane, as the
+    kernel's formulas need them (csrc/tower.cu miller_step_kernel): T3's
+    chain (inv_chain_counts), the norm's two squarings and 17 other
+    products when doubling (x^2 2, num conj(den) 3, lambda 2, lambda^2 2,
+    lambda xt 3, lambda (xt - x3) 3, lambda px 2), 15 when adding (no x^2);
+    40 modular adds and subtracts when doubling, 35 when adding."""
+    from halo2_verifier_tpu_torch.ops.constants import P
+
+    squarings, multiplies = inv_chain_counts(P - 2)
+    double = mode == 0
+    return ops((squarings + 2, MONT_SQR),
+               (multiplies + (17 if double else 15), MONT_MUL),
+               (40 if double else 35, ADD_SUB))
 
 
 def ops_sqrt(squarings, multiplies):
@@ -826,14 +845,36 @@ def fq12_stacks(np, rng, ints_to_limbs, width):
     return out
 
 
+def step_operands(torch, np, rng, ints_to_limbs, width, dev):
+    """(T, Q, P2): Miller step operands of `width` lanes, the edge lanes
+    (constants.miller_step_edge_lanes: a zero denominator in each mode,
+    every FQ_EDGE value in every coordinate) first, random canonical
+    values after; T and Q (16, 4, width) stacks, P2 the (2, 16, width)
+    rows px, py as pairing_product holds them."""
+    from halo2_verifier_tpu_torch.ops.constants import (
+        P, miller_step_edge_lanes)
+
+    lanes = miller_step_edge_lanes()[:width]
+    n = len(lanes)
+    limbs = random_field(np, rng, P, 10 * width).reshape(10, width, 16)
+    for c in range(10):
+        limbs[c, :n] = ints_to_limbs([lane[c] for lane in lanes])
+    x = torch.from_numpy(np.ascontiguousarray(
+        limbs.transpose(0, 2, 1)).astype(np.int32)).to(dev)
+    return (x[0:4].transpose(0, 1).contiguous(),
+            x[4:8].transpose(0, 1).contiguous(), x[8:10].contiguous())
+
+
 def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
     """The device pairing's tower kernels against their plain versions,
     bit for bit, at the pairing's widths (1 and 2 lanes: two live pairs)
     and at 16,384 lanes: T1 add, sub and neg (operand a a column slice of
     a wider tensor, read at its own row stride), T2 on the three Fq12
     maps, the fused Fq12 multiply and square on the edge pairs, T3 for Fq
-    and Fr (0 -> 0 in the first lane). Each kernel also timed at 16,384
-    lanes beside its plain version and its bound (T3 for Fq and Fr)."""
+    and Fr (0 -> 0 in the first lane), the Miller step in both modes on
+    its edge lanes (px and py column slices of a wider tensor). Each
+    kernel also timed at 16,384 lanes beside its plain version and its
+    bound (T3 for Fq and Fr, the step in both modes)."""
     rng = np.random.default_rng(12)
     checked, worst, wide = [], 0, {}
 
@@ -892,15 +933,29 @@ def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
             worst = max(worst, err)
             checked.append(["fq_inv", spec.kernel_id, w, err])
         wide["fq_inv" if spec is fm.FQ else "fq_inv_fr"] = args
+    T, Q, P2 = step_operands(torch, np, rng, ints_to_limbs,
+                             max(TOWER_WIDTHS), dev)
+    for w in TOWER_WIDTHS:
+        t, q = T[:, :, :w].contiguous(), Q[:, :, :w].contiguous()
+        p = (P2[0, :, :w], P2[1, :, :w])  # rows at the wider stride
+        for mode in (kernels.MILLER_DOUBLE, kernels.MILLER_ADD):
+            qm = q if mode == kernels.MILLER_ADD else None
+            err = max_abs_err(torch, tp._miller_step(mode, t, qm, p),
+                              tp.miller_step_plain(mode, t, qm, p))
+            worst = max(worst, err)
+            checked.append(["miller_step", mode, w, err])
+    wide["miller_step"] = (kernels.MILLER_DOUBLE, T, None, P2[0], P2[1])
+    wide["miller_step_add"] = (kernels.MILLER_ADD, T, Q, P2[0], P2[1])
     timings = {}
     for label, args in wide.items():
-        name = label.removesuffix("_fr")
+        name = label.removesuffix("_fr").removesuffix("_add")
         fn = getattr(kernels, name)
         plain, nbytes, counts = kernel_case(name, args, None, fm, None, None)
         bound_ms, bound_by = card.bound(nbytes, counts)
         ms, ms_basis, events_ms = kernel_ms(torch, name, lambda: fn(*args))
         timings[label] = {
-            "lanes": int(args[0].shape[-1]), "ms": sig(ms),
+            "lanes": int(args[1 if name == "miller_step" else 0].shape[-1]),
+            "ms": sig(ms),
             "ms_basis": ms_basis, "events_ms": round(events_ms, 4),
             "plain_ms": round(time_ms(torch, plain, reps=1), 4),
             "bound_ms": sig(bound_ms), "bound_by": bound_by,
@@ -924,7 +979,8 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     bilinearity verdicts (good and tampered) the host pairing's; the time
     of one check (median of PAIRING_REPS) beside the host pairing's on
     the same pairs; launches per check by kernel, which must be the
-    dispatch's counts (PAIRING_LAUNCHES: the Fq12 multiply fused, no T2);
+    dispatch's counts (PAIRING_LAUNCHES: the Fq12 multiply fused, one
+    Miller step kernel per step, no T2);
     the profiler's count of device kernels and copies in one check and
     their device time."""
     from torch.autograd import DeviceType
@@ -975,6 +1031,7 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    by_name = collections.Counter(e.name[:60] for e in events)
     busy = device_times(prof)
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     # device time per launch of the package's kernels in this check (CUDA
@@ -984,7 +1041,8 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     for name, kernel in (("mont_mul", "mont_mul_kernel<0>"),
                          ("fq_addsub", "fq_addsub_kernel"),
                          ("fq12_mul", "fq12_mul_kernel"),
-                         ("fq_inv", "fq_inv_kernel<0,")):
+                         ("fq_inv", "fq_inv_kernel<0,"),
+                         ("miller_step", "miller_step_kernel")):
         ev = [e for e in events if kernel in e.name]
         if ev:
             per_launch[name] = round(
@@ -1000,6 +1058,8 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
             "package_kernel_launches_per_check": sum(launches.values()),
             "profiler_device_kernels_per_check": len(events) - len(copies),
             "profiler_device_copies_per_check": len(copies),
+            "profiler_kernels_per_check_by_name": dict(
+                by_name.most_common(10)),
             "profiler_device_busy_ms_per_check":
                 round(sum(busy.values()) / 1e3, 3) if busy else None,
             "profiler_device_us_per_launch": per_launch,
@@ -1011,17 +1071,17 @@ def phase_single(torch, kernels, BatchVerifier, fixture):
     """strategy="single" with the device pairing: one check per proof on
     SINGLE_PROOFS proofs, one with a public input + 1, which must fail at
     its index; the counts are set to 0 just before and read just after,
-    and only K1, T1, the fused Fq12 multiply and T3 may launch (the
-    single strategy's MSMs run on the host, as in the reference's
-    SingleStrategy). The host pairing's
-    verdict and time on the same batch beside it."""
+    and only K1, T1, the fused Fq12 multiply, T3 and the Miller step may
+    launch (the single strategy's MSMs run on the host, as in the
+    reference's SingleStrategy). The host pairing's verdict and time on
+    the same batch beside it."""
     from halo2_verifier_tpu_torch.ops.constants import R
 
     params, vk, items = fixture
     batch = list(items[:SINGLE_PROOFS])
     p, inst = batch[SINGLE_TAMPER_INDEX]
     batch[SINGLE_TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
-    expect = ("mont_mul", "fq_addsub", "fq12_mul", "fq_inv")
+    expect = ("mont_mul", "fq_addsub", "fq12_mul", "fq_inv", "miller_step")
     out_ = {"phase": "single_device_pairing", "proofs": SINGLE_PROOFS}
     for pairing in ("device", "host"):
         bv = BatchVerifier(params, vk, strategy="single", pairing=pairing)
@@ -1082,6 +1142,11 @@ KERNELS = (
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:56 _finv "
      "(halo2_verifier_tpu/ops/lmfield.py:474 inv_mont)",
      "device_pairing_path"),
+    ("miller_step", "halo2_verifier_tpu_torch/csrc/tower.cu",
+     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:585 _line_double "
+     "and :605 _line_add (their Fq adds, the K1 products of "
+     "halo2_verifier_tpu/ops/lmfield.py:440 and :474 inv_mont)",
+     "device_pairing_path"),
 )
 
 
@@ -1095,6 +1160,7 @@ KERNEL_FN = {
     "forest_frontier0": "frontier0_kernel",
     "fq_addsub": "fq_addsub_kernel", "fq_linmap": "fq_linmap_kernel",
     "fq12_mul": "fq12_mul_kernel", "fq_inv": "fq_inv_kernel",
+    "miller_step": "miller_step_kernel",
 }
 
 
@@ -1206,6 +1272,18 @@ def kernel_case(name, args, curve, fm, f8, decomp):
                 2 * LIMB_BYTES * b,
                 ops((b * squarings, MONT_SQR), (b * multiplies, MONT_MUL),
                     (b, LOAD16), (b, STORE16)))
+    if name == "miller_step":
+        from halo2_verifier_tpu_torch.ops import pairing
+
+        mode, t, q, px, py = args
+        b = t.shape[2]
+        # T (and Q when adding) and P read once, T' and the 12 line
+        # coefficients written once
+        n_in = 6 if q is None else 10
+        return (lambda: pairing.miller_step_plain(mode, t, q, (px, py)),
+                LIMB_BYTES * (n_in + 16) * b,
+                ops((b, ops_miller_step(mode)), (n_in * b, LOAD16),
+                    (16 * b, STORE16)))
     if name == "point_double":
         (p,) = args
         b = p[0].shape[1]
@@ -1236,8 +1314,8 @@ def time_kernel(torch, card, kernels, name, record, curve, fm, f8, decomp):
     plain, nbytes, counts = kernel_case(name, args, curve, fm, f8, decomp)
     err = max_abs_err(torch, fn(*args), plain())
     ms, ms_basis, events_ms = kernel_ms(torch, name, lambda: fn(*args))
-    plain_ms = time_ms(torch, plain,
-                       reps=1 if name in ("sqrt_principal", "fq_inv") else 3)
+    plain_ms = time_ms(torch, plain, reps=1 if name in (
+        "sqrt_principal", "fq_inv", "miller_step") else 3)
     bound_ms, bound_by = card.bound(nbytes, counts)
     n = record["batches"]
     extra = {}
@@ -1482,7 +1560,8 @@ def run(torch, card, dev, n_batches, make_verifier):
         torch, kernels, fixture, make_verifier, DEVICE_PAIRING_BATCHES,
         "device_pairing_path",
         ("forest_frontier0", "point_add", "sqrt_principal", "mont_mul",
-         "fq_addsub", "fq12_mul", "fq_inv"), pairing="device")
+         "fq_addsub", "fq12_mul", "fq_inv", "miller_step"),
+        pairing="device")
     emit(res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch_device_pairing", pairing="device"))

@@ -15,7 +15,11 @@
 //   map MC) in one launch; plain version ops/pairing.py fq12_mul_plain;
 // - T3 fq_inv: the Fermat inversion of pairing_jax `_finv`
 //   (`lmfield.inv_mont`, a lax.scan of Montgomery products); plain
-//   version ops/field.py inv_mont_body.
+//   version ops/field.py inv_mont_body;
+// - miller_step: one affine Miller step, the whole of pairing_jax
+//   `_line_double` (mode 0) or `_line_add` (mode 1) with its line written
+//   as a (16, 12, B) coefficient stack; plain version ops/pairing.py
+//   miller_step_plain.
 // Every output is the canonical residue, unique, so each kernel equals its
 // plain version bit for bit whatever its internal representation.
 //
@@ -24,10 +28,11 @@
 // so both are bound by bytes at any width that fills the card; fq12_mul
 // does 54 products per lane on 36 elements moved, bound by its
 // multiply-adds; T3 by the multiply-adds of the shortest fixed-window
-// chain for N - 2. The pairing runs them at 1-108 lanes, where a launch
-// costs its latency: the fixed cost of a launch, and for fq12_mul and T3
-// the chain of dependent steps inside one lane. The measured times and
-// shares are in PERF.md.
+// chain for N - 2, and the Miller step by those of that chain and its ~19
+// products around it. The pairing runs them at 1-108 lanes, where a launch
+// costs its latency: the fixed cost of a launch, and for fq12_mul, T3 and
+// the step the chain of dependent steps inside one lane. The measured
+// times and shares are in PERF.md.
 //
 // Design:
 // - T1: one thread per lane on field.cuh's canonical add and sub; each
@@ -58,8 +63,22 @@
 //   that input and output stay 16-bit-limb Montgomery (R = 2^256)
 //   residues; inv(0) = 0 falls out of it. At the pairing's 1-3 lanes a
 //   launch is one warp's chain of 326 dependent products.
-// The shapes were chosen on the card by sweep_kernels.py fq12_mul and
-// fq_inv; the numbers are in PERF.md.
+// - miller_step: one thread per lane runs the step from its inputs to its
+//   stores, so the Miller loop launches one kernel per step where the
+//   composition launched ~47 (T1's adds, K1's products, T3) and ~20 torch
+//   ops. At the pairing's 1-2 lanes the step is one warp's latency: T3's
+//   chain, inline (the same inv29 as fq_inv), with ~19 products and ~40
+//   adds of field.cuh around it, so it costs about one T3 launch. The
+//   formulas differ from the reference's composition where that saves
+//   work (lambda = num conj(den) / norm(den) with one inverse; (px, 0)
+//   times lambda as two products; squares of two products), which changes
+//   no canonical output; den = 0 gives lambda = 0 as the reference's
+//   inv(0) = 0 does. T and Q are read again after the chain, so only
+//   num conj(den) lives across it. The mode is a template parameter, one
+//   instantiation each (MillerShape::kModeTemplate; false reads it at run
+//   time, for the sweep).
+// The shapes were chosen on the card by sweep_kernels.py fq12_mul, fq_inv
+// and miller_step; the numbers are in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -183,6 +202,19 @@ struct InvShape {
     static constexpr int kInvThreads = 64;
     static constexpr int kWindow = 3;
 };
+
+// The Miller step's block size, and whether its mode is a template
+// parameter (one instantiation per mode) or an argument read at run time.
+struct MillerShape {
+    static constexpr int kStepThreads = 64;
+    static constexpr bool kModeTemplate = true;
+};
+
+// The Miller step's line in ops/pairing.py _fq12_coeff_stack's order: py
+// in slot kLinePy, c3 in kLineC3 and kLineC3 + 1, c4 in kLineC4 and
+// kLineC4 + 1, zeros in the other 7.
+constexpr int kLinePy = 0, kLineC3 = 6, kLineC4 = 8;
+constexpr int kRuntimeMode = -1;  // miller_step_kernel reads `mode`
 
 using h2v::E29;
 using h2v::Fe;
@@ -352,21 +384,184 @@ fq12_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     }
 }
 
+// x R -> x^-1 R for a canonical x (R = 2^256; inv(0) = 0): T3's chain.
+template <int F, int W>
+__device__ __forceinline__ Fe inv29(const Fe& x) {
+    // x 2^256 (canonical, exact limbs) -> x 2^261, below 2N
+    E29 r[1] = {h2v::mul29<F>(h2v::from_words(x),
+                              h2v::from_const29(INV_IN29[F]))};
+    h2v::pow_window29<F, W, 1, kInvBits>(r, INV_EXP[F]);
+    // x^-1 2^261 -> x^-1 2^256, below 2N: exact limbs, words, one
+    // conditional subtract
+    const E29 y = h2v::mul29<F>(r[0], h2v::from_const29(INV_OUT29[F]));
+    return h2v::cond_sub<F>(h2v::to_words(h2v::normalize29(y)));
+}
+
 template <int F, int W>
 __global__ void __launch_bounds__(InvShape::kInvThreads)
 fq_inv_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
               uint32_t width) {
     uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= width) return;
-    // x 2^256 (canonical, exact limbs) -> x 2^261, below 2N
-    E29 r[1] = {h2v::mul29<F>(h2v::from_words(Limbs16::load(a + i, width)),
-                              h2v::from_const29(INV_IN29[F]))};
-    h2v::pow_window29<F, W, 1, kInvBits>(r, INV_EXP[F]);
-    // x^-1 2^261 -> x^-1 2^256, below 2N: exact limbs, words, one
-    // conditional subtract
-    const E29 y = h2v::mul29<F>(r[0], h2v::from_const29(INV_OUT29[F]));
-    Limbs16::store(out + i, width,
-                   h2v::cond_sub<F>(h2v::to_words(h2v::normalize29(y))));
+    Limbs16::store(out + i, width, inv29<F, W>(Limbs16::load(a + i, width)));
+}
+
+// r[k] = a[k] b[k] for k < N, one layer of the Miller step's independent
+// products, one after another: a rolled loop of one product's code, so
+// the step's registers stay one product's plus the live values (with
+// every product inlined, the doubling took 254 registers and spilled;
+// two or three products interleaved per turn ran slower on the card); the
+// operands wait in local memory.
+template <int N>
+__device__ __forceinline__ void fq_mul_n(Fe (&r)[N], const Fe (&a)[N],
+                                         const Fe (&b)[N]) {
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) r[k] = h2v::mont_mul<0>(a[k], b[k]);
+}
+
+// Fq2 = Fq[u]/(u^2 + 1) on canonical Fq Montgomery residues.
+struct Fq2 {
+    Fe c0, c1;
+};
+
+__device__ __forceinline__ Fq2 fq2_add(const Fq2& a, const Fq2& b) {
+    return {h2v::add<0>(a.c0, b.c0), h2v::add<0>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fq2 fq2_sub(const Fq2& a, const Fq2& b) {
+    return {h2v::sub<0>(a.c0, b.c0), h2v::sub<0>(a.c1, b.c1)};
+}
+
+__device__ __forceinline__ Fe fq_neg(const Fe& a) {
+    return h2v::sub<0>(Fe{}, a);
+}
+
+// a b by Karatsuba: 3 products.
+__device__ __forceinline__ Fq2 fq2_mul(const Fq2& a, const Fq2& b) {
+    const Fe x[3] = {a.c0, a.c1, h2v::add<0>(a.c0, a.c1)};
+    const Fe y[3] = {b.c0, b.c1, h2v::add<0>(b.c0, b.c1)};
+    Fe t[3];
+    fq_mul_n(t, x, y);
+    return {h2v::sub<0>(t[0], t[1]),
+            h2v::sub<0>(h2v::sub<0>(t[2], t[0]), t[1])};
+}
+
+// (a0 s, a1 s): 2 products.
+__device__ __forceinline__ Fq2 fq2_scale(const Fq2& a, const Fe& s) {
+    const Fe x[2] = {a.c0, a.c1};
+    const Fe y[2] = {s, s};
+    Fe t[2];
+    fq_mul_n(t, x, y);
+    return {t[0], t[1]};
+}
+
+// Fq2 coefficient pair (c, c + 1) of lane i of a (16, 4, width) stack.
+__device__ __forceinline__ Fq2 load_fq2(const int32_t* __restrict__ s, int c,
+                                        uint32_t width, uint32_t i) {
+    return {Limbs16::load(s + c * width + i, 4 * width),
+            Limbs16::load(s + (c + 1) * width + i, 4 * width)};
+}
+
+__device__ __forceinline__ void store_fq2(int32_t* __restrict__ s, int c,
+                                          uint32_t rows, uint32_t width,
+                                          uint32_t i, const Fq2& v) {
+    Limbs16::store(s + c * width + i, rows, v.c0);
+    Limbs16::store(s + (c + 1) * width + i, rows, v.c1);
+}
+
+// One affine Miller step per lane: M = 0 doubles T (pairing_jax
+// _line_double), M = 1 adds Q to T (_line_add), M = kRuntimeMode reads
+// `mode`. t, q: (16, 4, width) stacks (xt0, xt1, yt0, yt1), q unread when
+// doubling; px, py: (16, width) rows at their own strides; t_out: (16, 4,
+// width), T'; line: (16, 12, width), the line at P.
+template <int M>
+__global__ void __launch_bounds__(MillerShape::kStepThreads)
+miller_step_kernel(const int32_t* __restrict__ t,
+                   const int32_t* __restrict__ q,
+                   const int32_t* __restrict__ px, uint32_t px_stride,
+                   const int32_t* __restrict__ py, uint32_t py_stride,
+                   int32_t* __restrict__ t_out, int32_t* __restrict__ line,
+                   uint32_t width, int mode) {
+    const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= width) return;
+    const bool add_q = (M == kRuntimeMode ? mode : M) != 0;
+    // The products run in five layers of independent ones, as the
+    // reference batches them: the norm (and, doubling, xt^2); num conj(den);
+    // lambda; lambda^2, lambda xr and lambda px; lambda (xt - x3).
+    // 1. lambda = num / den = num conj(den) / norm(den): doubling, num =
+    // 3 xt^2 and den = 2 yt; adding, num = yt - yq and den = xt - xq.
+    // The run-time mode takes the doubling's layer in both modes.
+    constexpr int kPre = M == 1 ? 2 : 4;
+    Fq2 num, den;
+    Fe a1[kPre], b1[kPre], p1[kPre];
+    if (add_q) {
+        num = fq2_sub(load_fq2(t, 2, width, i), load_fq2(q, 2, width, i));
+        den = fq2_sub(load_fq2(t, 0, width, i), load_fq2(q, 0, width, i));
+    } else {
+        const Fq2 yt = load_fq2(t, 2, width, i);
+        den = fq2_add(yt, yt);
+    }
+    a1[0] = b1[0] = den.c0;
+    a1[1] = b1[1] = den.c1;
+    if constexpr (kPre == 4) {  // xt^2 = (x0 + x1)(x0 - x1) + 2 x0 x1 u
+        const Fq2 xt = load_fq2(t, 0, width, i);
+        a1[2] = h2v::add<0>(xt.c0, xt.c1);
+        b1[2] = h2v::sub<0>(xt.c0, xt.c1);
+        a1[3] = xt.c0;
+        b1[3] = xt.c1;
+    }
+    fq_mul_n(p1, a1, b1);
+    const Fe norm = h2v::add<0>(p1[0], p1[1]);
+    if (!add_q) {
+        const Fq2 s = {p1[kPre - 2], h2v::add<0>(p1[kPre - 1], p1[kPre - 1])};
+        num = fq2_add(fq2_add(s, s), s);
+    }
+    const Fq2 w = fq2_mul(num, {den.c0, fq_neg(den.c1)});
+    // 2. the norm's inverse, T3's chain (norm 0 -> 0, so lambda = 0)
+    const Fe ninv = inv29<0, InvShape::kWindow>(norm);
+    // 3. lambda, then lambda^2 = (l0 + l1)(l0 - l1) + 2 l0 l1 u, lambda xr
+    // by Karatsuba (xr = xt doubling, xq adding) and lambda px; T and Q
+    // read again, so that neither lives across the chain
+    const Fq2 lam = fq2_scale(w, ninv);
+    const Fq2 xt = load_fq2(t, 0, width, i), yt = load_fq2(t, 2, width, i);
+    const Fq2 xr = add_q ? load_fq2(q, 0, width, i) : xt;
+    const Fe p = Limbs16::load(px + i, px_stride);
+    const Fe l01 = h2v::add<0>(lam.c0, lam.c1);
+    const Fe a4[7] = {l01, lam.c0, lam.c0, lam.c1, l01, lam.c0, lam.c1};
+    const Fe b4[7] = {h2v::sub<0>(lam.c0, lam.c1), lam.c1, xr.c0, xr.c1,
+                      h2v::add<0>(xr.c0, xr.c1), p, p};
+    Fe p4[7];
+    fq_mul_n(p4, a4, b4);
+    const Fq2 ll = {p4[0], h2v::add<0>(p4[1], p4[1])};
+    const Fq2 lx = {h2v::sub<0>(p4[2], p4[3]),
+                    h2v::sub<0>(h2v::sub<0>(p4[4], p4[2]), p4[3])};
+    const Fq2 c3 = {fq_neg(p4[5]), fq_neg(p4[6])};
+    // 4. x3, c4 = lambda xr - yr, y3 = lambda (xt - x3) - yt
+    Fq2 x3, c4;
+    if (add_q) {
+        x3 = fq2_sub(fq2_sub(ll, xt), xr);
+        c4 = fq2_sub(lx, load_fq2(q, 2, width, i));
+    } else {
+        x3 = fq2_sub(ll, fq2_add(xt, xt));
+        c4 = fq2_sub(lx, yt);
+    }
+    const Fq2 y3 = fq2_sub(fq2_mul(lam, fq2_sub(xt, x3)), yt);
+    // 5. T' and the line's 12 coefficients: py copied, zeros written
+    const uint32_t t_rows = 4 * width, l_rows = kCoefs * width;
+    store_fq2(t_out, 0, t_rows, width, i, x3);
+    store_fq2(t_out, 2, t_rows, width, i, y3);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+        line[k * l_rows + kLinePy * width + i] = py[k * py_stride + i];
+    store_fq2(line, kLineC3, l_rows, width, i, c3);
+    store_fq2(line, kLineC4, l_rows, width, i, c4);
+#pragma unroll
+    for (int c = 0; c < kCoefs; ++c) {
+        if (c == kLinePy || c == kLineC3 || c == kLineC3 + 1 ||
+            c == kLineC4 || c == kLineC4 + 1)
+            continue;
+        Limbs16::store(line + c * width + i, l_rows, Fe{});
+    }
 }
 
 unsigned int blocks_for(long long n, int threads) {
@@ -414,5 +609,40 @@ extern "C" int h2v_fq_inv(const int32_t* a, int32_t* out, long long width,
     else
         fq_inv_kernel<1, W><<<blocks_for(width, T), T, 0, s>>>(
             a, out, (uint32_t)width);
+    return (int)cudaGetLastError();
+}
+
+namespace {
+
+// A template, so that only the instantiations the shape asks for compile.
+template <bool kModeTemplate>
+void launch_miller_step(const int32_t* t, const int32_t* q,
+                        const int32_t* px, uint32_t px_stride,
+                        const int32_t* py, uint32_t py_stride,
+                        int32_t* t_out, int32_t* line, uint32_t width,
+                        int mode, cudaStream_t s) {
+    constexpr int T = MillerShape::kStepThreads;
+    const unsigned int blocks = blocks_for(width, T);
+    if constexpr (!kModeTemplate)
+        miller_step_kernel<kRuntimeMode><<<blocks, T, 0, s>>>(
+            t, q, px, px_stride, py, py_stride, t_out, line, width, mode);
+    else if (mode == 0)
+        miller_step_kernel<0><<<blocks, T, 0, s>>>(
+            t, q, px, px_stride, py, py_stride, t_out, line, width, mode);
+    else
+        miller_step_kernel<1><<<blocks, T, 0, s>>>(
+            t, q, px, px_stride, py, py_stride, t_out, line, width, mode);
+}
+
+}  // namespace
+
+extern "C" int h2v_miller_step(const int32_t* t, const int32_t* q,
+                               const int32_t* px, long long px_stride,
+                               const int32_t* py, long long py_stride,
+                               int32_t* t_out, int32_t* line,
+                               long long width, int mode, void* stream) {
+    launch_miller_step<MillerShape::kModeTemplate>(
+        t, q, px, (uint32_t)px_stride, py, (uint32_t)py_stride, t_out, line,
+        (uint32_t)width, mode, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

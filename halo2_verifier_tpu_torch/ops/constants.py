@@ -127,6 +127,23 @@ def fq12_edge_pairs():
     return pairs
 
 
+def miller_step_edge_lanes():
+    """Miller step operands at the step's edges, one 10-tuple (xt0, xt1,
+    yt0, yt1, xq0, xq1, yq0, yq1, px, py) of canonical Fq values per lane
+    (the step is field arithmetic on any values): a zero denominator in
+    each mode (yt = 0 when doubling; Q = T and Q = -T when adding, where
+    the reference's inv(0) = 0 makes lambda 0), all zeros, then every
+    FQ_EDGE value in every coordinate."""
+    e, n = FQ_EDGE, len(FQ_EDGE)
+    x0, x1, y0, y1 = e[4], e[9], e[11], e[2]
+    lanes = [(x0, x1, 0, 0, e[5], e[6], e[7], e[8], e[2], e[3]),
+             (x0, x1, y0, y1, x0, x1, y0, y1, e[2], e[3]),
+             (x0, x1, y0, y1, x0, x1, (-y0) % P, (-y1) % P, e[1], e[12]),
+             (0,) * 10]
+    return lanes + [tuple(e[(j + 3 * c) % n] for c in range(10))
+                    for j in range(n)]
+
+
 def sqrt_edge_xs():
     """x operands at the square root's edges: FQ_EDGE, and the first x
     whose x^3 + 3 is a non-residue (off the curve: its root fails the

@@ -66,7 +66,7 @@ _libs: dict = {}
 LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
             "point_add": 0, "point_double": 0, "mont_mul8": 0,
             "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq12_mul": 0,
-            "fq_inv": 0}
+            "fq_inv": 0, "miller_step": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
@@ -266,6 +266,8 @@ SIGNATURES = {
         "h2v_fq_linmap": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
         "h2v_fq12_mul": [_VP, _VP, _VP, _LL, _VP],
         "h2v_fq_inv": [_VP, _VP, _LL, _CI, _VP],
+        "h2v_miller_step": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _LL,
+                            _CI, _VP],
     },
 }
 
@@ -607,3 +609,55 @@ def fq_inv(a, field_id: int):
     _raise_on(rc, "fq_inv")
     _count("fq_inv", a.shape[1], (a, field_id))
     return out
+
+
+# the Miller step's modes
+MILLER_DOUBLE, MILLER_ADD = 0, 1
+G2_COEFS = 4  # an affine G2 point's Fq coefficients (x0, x1, y0, y1)
+
+
+def miller_step(mode: int, t, q, px, py):
+    """One affine Miller step in one launch: mode MILLER_DOUBLE doubles T
+    (the tangent at T), MILLER_ADD adds Q to T (the chord), and either
+    evaluates the line at P = (px, py). t, q: contiguous (16, 4, B) int32
+    stacks (x0, x1, y0, y1) of canonical Montgomery limbs on the card (q
+    None when doubling); px, py: (16, B) limb rows, each at its own row
+    stride. Returns (T', line): a new (16, 4, B) stack and the line's
+    (16, 12, B) coefficient stack (py, c3 and c4 in their slots of
+    ops/pairing.py _fq12_coeff_stack, zeros elsewhere)."""
+    if mode not in (MILLER_DOUBLE, MILLER_ADD):
+        raise ValueError(f"miller_step: unknown mode {mode}")
+    dev = t.device
+    stacks = (t,) if mode == MILLER_DOUBLE else (t, q)
+    for s in stacks:
+        if not s.is_cuda or s.device != dev:
+            raise ValueError("miller_step: expects CUDA tensors on one "
+                             "device")
+        if (s.dtype != torch.int32 or s.dim() != 3
+                or s.shape[:2] != (NLIMBS, G2_COEFS)
+                or not s.is_contiguous()):
+            raise ValueError("miller_step: expects contiguous (16, 4, B) "
+                             f"int32 stacks, got {tuple(s.shape)} {s.dtype}")
+    if mode == MILLER_ADD and q.shape != t.shape:
+        raise ValueError("miller_step: T and Q shapes differ")
+    _check_rows("miller_step", px, py)
+    width = t.shape[2]
+    if px.device != dev or px.shape[1] != width or py.shape[1] != width:
+        raise ValueError("miller_step: P's rows and T differ in device or "
+                         "width")
+    if NLIMBS * FQ12_COEFS * width >= MAX_ELEMENTS:
+        raise ValueError("miller_step: a tensor of 2^31 or more elements")
+    t_out = torch.empty_like(t)
+    line = torch.empty((NLIMBS, FQ12_COEFS, width), dtype=torch.int32,
+                       device=dev)
+    if width == 0:
+        return t_out, line
+    lib = _lib("tower.cu")
+    with torch.cuda.device(dev):
+        rc = lib.h2v_miller_step(
+            t.data_ptr(), None if mode == MILLER_DOUBLE else q.data_ptr(),
+            px.data_ptr(), px.stride(0), py.data_ptr(), py.stride(0),
+            t_out.data_ptr(), line.data_ptr(), width, mode, _stream(dev))
+    _raise_on(rc, "miller_step")
+    _count("miller_step", width, (mode, t, q, px, py))
+    return t_out, line

@@ -24,12 +24,18 @@ hundreds of small launches each have a kernel of their own
   stacks (`fq12_mul_stack`; plain version: `fq12_mul_plain`, the
   reference's composition on the plain versions);
 - T3 `fq_inv`: the Fermat inversion of `_finv`, through `field.inv_mont`
-  (plain version: `field.inv_mont_body`).
+  (plain version: `field.inv_mont_body`);
+- `miller_step`: one affine Miller step, the whole of `_line_double` or
+  `_line_add` (their add chains, Fq2 products and inversion) in one
+  launch, on (NLIMBS, 4, B) point stacks and writing the line as an
+  (NLIMBS, 12, B) coefficient stack (`_miller_step`; plain version:
+  `miller_step_plain`, the reference's composition on the plain bodies).
 CPU tensors take the plain versions. Limbs are (NLIMBS, B) int32
 canonical Montgomery residues at every function boundary, as in
 ops/field.py. An Fq12 value that only multiplies stays a coefficient
 stack: the Miller loop's accumulator and the hard part's exponentiation
-stack once on entry and split into the reference's tuple tree on exit.
+stack once on entry and split into the reference's tuple tree on exit;
+the Miller loop's point T stays a point stack from step to step.
 
 `lax.scan` and `lax.cond` over the static bit arrays become Python loops
 over the same bits; a zero exponent bit skips the product the reference
@@ -658,51 +664,108 @@ def fq12_frobenius2(a):
 # ------------------------------------------------------------ Miller loop
 
 
-def _sparse_line(c0fq, c3, c4, b):
-    """c0 + c3 vw + c4 w in full Fq12 layout (oracle _sparse_line)."""
-    dev = c0fq.device
-    return (
-        ((c0fq, _zero(b, dev)), fq2_zero(b, dev), fq2_zero(b, dev)),
-        (c3, c4, fq2_zero(b, dev)),
-    )
+# The line's coefficient slots in _fq12_coeff_stack's order (oracle
+# _sparse_line: c0 + c3 vw + c4 w, c0 = (py, 0)); csrc/tower.cu kLinePy,
+# kLineC3, kLineC4.
+_LINE_PY, _LINE_C3, _LINE_C4 = 0, 6, 8
+
+
+def _g2_stack(q):
+    """An affine G2 point ((x0, x1), (y0, y1)) -> (NLIMBS, 4, B) stack."""
+    return torch.stack([q[0][0], q[0][1], q[1][0], q[1][1]], dim=1)
+
+
+def _g2_from_stack(T):
+    return ((T[:, 0], T[:, 1]), (T[:, 2], T[:, 3]))
+
+
+def miller_step_plain(mode, T, Q, P):
+    """The plain version of the Miller step kernel, on any device: the
+    reference's _line_double (mode kernels.MILLER_DOUBLE) or _line_add
+    (MILLER_ADD), products batched per dependency layer as there, on the
+    plain bodies (field.add_body, sub_body, neg_body, mont_mul_body,
+    inv_mont_body), so it launches no package kernel. T, Q: (NLIMBS, 4, B)
+    int32 stacks (x0, x1, y0, y1), Q None when doubling; P = (px, py),
+    (NLIMBS, B) int32. Returns (T', line): a (NLIMBS, 4, B) stack and the
+    line's (NLIMBS, 12, B) coefficient stack."""
+    b = T.shape[2]
+
+    def add(x, y):
+        return fm.add_body(x, y, FQ)
+
+    def sub(x, y):
+        return fm.sub_body(x, y, FQ)
+
+    def sub2(x, y):
+        return (sub(x[0], y[0]), sub(x[1], y[1]))
+
+    def mul_many(pairs):  # _mul_many: one wide product
+        return fm.mont_mul_body(torch.cat([x for x, _ in pairs], dim=1),
+                                torch.cat([y for _, y in pairs], dim=1),
+                                FQ).split(b, dim=1)
+
+    def fq2_mul_many_(ps):  # fq2_mul_many: Karatsuba, one wide product
+        p = mul_many([t for x, y in ps for t in (
+            (x[0], y[0]), (x[1], y[1]), (add(x[0], x[1]), add(y[0], y[1])))])
+        return [(sub(p[3 * i], p[3 * i + 1]),
+                 sub(sub(p[3 * i + 2], p[3 * i]), p[3 * i + 1]))
+                for i in range(len(ps))]
+
+    xt, yt = _g2_from_stack(T.to(I64))
+    if mode == kernels.MILLER_DOUBLE:
+        xt2 = fq2_mul_many_([(xt, xt)])[0]
+        num = tuple(add(add(c, c), c) for c in xt2)
+        den = (add(yt[0], yt[0]), add(yt[1], yt[1]))
+        xr, yr = xt, yt
+    else:
+        xr, yr = _g2_from_stack(Q.to(I64))
+        num, den = sub2(yt, yr), sub2(xt, xr)
+    # fq2_inv(den): conj(den) / (den0^2 + den1^2), inv(0) = 0
+    sq = mul_many([(den[0], den[0]), (den[1], den[1])])
+    ninv = fm.inv_mont_body(add(sq[0], sq[1]), FQ)
+    inv = mul_many([(den[0], ninv), (den[1], ninv)])
+    lam = fq2_mul_many_([(num, (inv[0], fm.neg_body(inv[1], FQ)))])[0]
+    ll, lx = fq2_mul_many_([(lam, lam), (lam, xr)])
+    if mode == kernels.MILLER_DOUBLE:
+        x3 = sub2(ll, (add(xt[0], xt[0]), add(xt[1], xt[1])))
+    else:
+        x3 = sub2(sub2(ll, xt), xr)
+    c4 = sub2(lx, yr)
+    px = P[0].to(I64)
+    ly, lp = fq2_mul_many_([(lam, sub2(xt, x3)),
+                            (lam, (px, torch.zeros_like(px)))])
+    y3 = sub2(ly, yt)
+    c3 = (fm.neg_body(lp[0], FQ), fm.neg_body(lp[1], FQ))
+    line = torch.zeros((NLIMBS, 12, b), dtype=I32, device=T.device)
+    line[:, _LINE_PY] = P[1]
+    line[:, _LINE_C3:_LINE_C3 + 2] = torch.stack(c3, dim=1)
+    line[:, _LINE_C4:_LINE_C4 + 2] = torch.stack(c4, dim=1)
+    return _g2_stack((x3, y3)).to(I32), line
+
+
+def _miller_step(mode, T, Q, P):
+    """One affine Miller step on stacks (miller_step_plain's arguments and
+    results): one launch for CUDA tensors, the plain version for CPU
+    ones."""
+    if T.is_cuda:
+        return kernels.miller_step(mode, T, Q, *P)
+    return miller_step_plain(mode, T, Q, P)
 
 
 def _line_double(t, px, py):
-    """(2T, line at P) — affine tangent (oracle _line_double); products
-    batched per dependency layer."""
-    xt, yt = t
-    b = px.shape[1]
-    xt2 = fq2_mul(xt, xt)
-    lam = fq2_mul((_x3(xt2[0]), _x3(xt2[1])),
-                  fq2_inv((_x2(yt[0]), _x2(yt[1]))))
-    prods = fq2_mul_many([(lam, lam), (lam, xt)])
-    x3 = fq2_sub(prods[0], (_x2(xt[0]), _x2(xt[1])))
-    c4 = fq2_sub(prods[1], yt)
-    prods2 = fq2_mul_many([
-        (lam, fq2_sub(xt, x3)),
-        (lam, (px, _zero(b, px.device))),
-    ])
-    y3 = fq2_sub(prods2[0], yt)
-    c3 = fq2_neg(prods2[1])
-    return (x3, y3), _sparse_line(py, c3, c4, b)
+    """(2T, line at P), affine tangent (oracle _line_double), on the
+    reference's tuples: one Miller step."""
+    T, line = _miller_step(kernels.MILLER_DOUBLE, _g2_stack(t), None,
+                           (px, py))
+    return _g2_from_stack(T), _fq12_from_stack(line)
 
 
 def _line_add(t, q, px, py):
-    """(T+Q, line at P) — affine chord (oracle _line_add)."""
-    xt, yt = t
-    xq, yq = q
-    b = px.shape[1]
-    lam = fq2_mul(fq2_sub(yt, yq), fq2_inv(fq2_sub(xt, xq)))
-    prods = fq2_mul_many([(lam, lam), (lam, xq)])
-    x3 = fq2_sub(fq2_sub(prods[0], xt), xq)
-    c4 = fq2_sub(prods[1], yq)
-    prods2 = fq2_mul_many([
-        (lam, fq2_sub(xt, x3)),
-        (lam, (px, _zero(b, px.device))),
-    ])
-    y3 = fq2_sub(prods2[0], yt)
-    c3 = fq2_neg(prods2[1])
-    return (x3, y3), _sparse_line(py, c3, c4, b)
+    """(T+Q, line at P), affine chord (oracle _line_add), on the
+    reference's tuples: one Miller step."""
+    T, line = _miller_step(kernels.MILLER_ADD, _g2_stack(t), _g2_stack(q),
+                           (px, py))
+    return _g2_from_stack(T), _fq12_from_stack(line)
 
 
 def _g2_frobenius_twist(q):
@@ -723,25 +786,27 @@ def miller_loop_lanes(px, py, qx, qy):
 
     px/py: (NLIMBS, B) G1 affine Montgomery coords; qx/qy: Fq2 pairs of
     the same width. Identity pairs must be filtered by the caller (the
-    engine skips them, oracle miller_loop)."""
+    engine skips them, oracle miller_loop). f only multiplies and T only
+    steps, so both stay stacks, and each step's line goes to the multiply
+    as the step wrote it."""
     b = px.shape[1]
     q = ((qx[0], qx[1]), (qy[0], qy[1]))
-    # f only multiplies: it stays a coefficient stack
-    f, t = _fq12_one_stack(b, px.device), q
+    Q, P = _g2_stack(q), (px, py)
+    f, T = _fq12_one_stack(b, px.device), Q
     for bit in _ATE_BITS:
         f = fq12_mul_stack(f, f)
-        t, line = _line_double(t, px, py)
-        f = fq12_mul_stack(f, _fq12_coeff_stack(line))
+        T, line = _miller_step(kernels.MILLER_DOUBLE, T, None, P)
+        f = fq12_mul_stack(f, line)
         if bit:
-            t, line = _line_add(t, q, px, py)
-            f = fq12_mul_stack(f, _fq12_coeff_stack(line))
+            T, line = _miller_step(kernels.MILLER_ADD, T, Q, P)
+            f = fq12_mul_stack(f, line)
     q1 = _g2_frobenius_twist(q)
     q2 = _g2_frobenius_twist(q1)
     q2 = (q2[0], fq2_neg(q2[1]))
-    t, line = _line_add(t, q1, px, py)
-    f = fq12_mul_stack(f, _fq12_coeff_stack(line))
-    _, line = _line_add(t, q2, px, py)
-    return _fq12_from_stack(fq12_mul_stack(f, _fq12_coeff_stack(line)))
+    T, line = _miller_step(kernels.MILLER_ADD, T, _g2_stack(q1), P)
+    f = fq12_mul_stack(f, line)
+    _, line = _miller_step(kernels.MILLER_ADD, T, _g2_stack(q2), P)
+    return _fq12_from_stack(fq12_mul_stack(f, line))
 
 
 # ------------------------------------------------------ final exponentiation

@@ -38,6 +38,16 @@ fq_inv: the Fermat inversion T3 (tower.cu h2v_fq_inv) per block size and
 exponent window (tower.cu InvShape), at the pairing's 2 lanes and at
 16,384, for Fq (and Fr at 16,384).
 
+miller_step: the device pairing's affine Miller step (tower.cu
+h2v_miller_step) per block size and mode instantiation (tower.cu
+MillerShape: the mode a template parameter, or read at run time), in
+each mode at the pairing's 2 lanes and at 16,384. A version without
+h2v_miller_step (a --parent from before it) runs the step as the
+composition it replaced: one _line_double or _line_add on the tower's
+dispatching helpers, whose T1, K1 and T3 launches go to that version's
+kernels; `device_ms_package` sums those launches' device time alone
+(`device_ms` adds the composition's torch ops).
+
 --parent NAME=DIR (repeatable) adds another version's csrc/ directory as
 a variant, built and timed as it stands, to compare versions on one card
 in one call (unpack one with `git archive <commit>
@@ -47,7 +57,8 @@ halo2_verifier_tpu_torch/csrc` into a gitignored directory such as
 Prints one JSON line per variant and launch, then the table and the
 card's name and power limit. Needs a CUDA card.
 
-Usage: python3 sweep_kernels.py {point_add,sqrt,fq12_mul,fq_inv}
+Usage: python3 sweep_kernels.py {point_add,sqrt,fq12_mul,fq_inv,
+                                 miller_step}
                                 [--reps N] [--parent NAME=DIR ...]
 """
 
@@ -61,6 +72,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -347,8 +359,120 @@ class FqInv:
                            torch.cuda.current_stream().cuda_stream)), out
 
 
+def compose_step(tp, mode, t, q, px, py):
+    """The Miller step as the composition ran it before the step kernel
+    (ops/pairing.py _line_double and _line_add): the reference's formulas
+    on the tower's dispatching helpers (T1 adds, K1 products, a T3
+    inversion), (16, 4, B) stacks in and out, the line stacked from its
+    sparse tuple tree."""
+    xt, yt = tp._g2_from_stack(t)
+    if mode == 0:
+        xt2 = tp.fq2_mul(xt, xt)
+        lam = tp.fq2_mul((tp._x3(xt2[0]), tp._x3(xt2[1])),
+                         tp.fq2_inv((tp._x2(yt[0]), tp._x2(yt[1]))))
+        xr, yr = xt, yt
+    else:
+        xr, yr = tp._g2_from_stack(q)
+        lam = tp.fq2_mul(tp.fq2_sub(yt, yr),
+                         tp.fq2_inv(tp.fq2_sub(xt, xr)))
+    prods = tp.fq2_mul_many([(lam, lam), (lam, xr)])
+    if mode == 0:
+        x3 = tp.fq2_sub(prods[0], (tp._x2(xt[0]), tp._x2(xt[1])))
+    else:
+        x3 = tp.fq2_sub(tp.fq2_sub(prods[0], xt), xr)
+    c4 = tp.fq2_sub(prods[1], yr)
+    b, dev = px.shape[1], px.device
+    prods2 = tp.fq2_mul_many([(lam, tp.fq2_sub(xt, x3)),
+                              (lam, (px, tp._zero(b, dev)))])
+    y3 = tp.fq2_sub(prods2[0], yt)
+    line = (((py, tp._zero(b, dev)), tp.fq2_zero(b, dev),
+             tp.fq2_zero(b, dev)),
+            (tp.fq2_neg(prods2[1]), c4, tp.fq2_zero(b, dev)))
+    return tp._g2_stack((x3, y3)), tp._fq12_coeff_stack(line)
+
+
+class MillerStep:
+    """The Miller step per (block size, mode instantiation): the shipped
+    shape first, then the block size, then the mode read at run time; a
+    parent without the step kernel runs compose_step."""
+
+    header = "tower.cu"
+    build_sources = ("tower.cu", "mont_mul.cu")
+    sources = {"miller_step": "tower.cu"}
+    labels = {"miller_step": "miller_step_kernel"}
+    variants = [(64, True), (32, True), (128, True), (64, False)]
+    fields = {"kStepThreads": r"static constexpr int kStepThreads = \d+;",
+              "kModeTemplate":
+                  r"static constexpr bool kModeTemplate = (?:true|false);"}
+    matches = 1
+    composed = ("fq_addsub_kernel + mont_mul_kernel<0> + fq_inv_kernel "
+                "(one _line_double or _line_add)")
+    package_kernels = ("miller_step_kernel", "fq_addsub_kernel",
+                       "mont_mul_kernel", "fq_inv_kernel")
+
+    @staticmethod
+    def name(v):
+        return f"t{v[0]}_{'template' if v[1] else 'runtime'}"
+
+    @staticmethod
+    def values(v):
+        return {"kStepThreads": f"int kStepThreads = {v[0]};",
+                "kModeTemplate":
+                    f"bool kModeTemplate = {'true' if v[1] else 'false'};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        from halo2_verifier_tpu_torch.ops import pairing as tp
+
+        rng = np.random.default_rng(10)
+        width = max(TOWER_LANES)
+        T = canonical(torch, np, rng, (16, 4, width), dev)
+        Q = canonical(torch, np, rng, (16, 4, width), dev)
+        P2 = canonical(torch, np, rng, (16, 2, width), dev)
+        for lanes in TOWER_LANES[1:]:
+            t, q = (x[:, :, :lanes].contiguous() for x in (T, Q))
+            p = (P2[:, 0, :lanes], P2[:, 1, :lanes])  # rows at a stride
+            for mode, tag in ((0, "dbl"), (1, "add")):
+                qm = q if mode else None
+                yield ("miller_step", f"{tag}_{lanes}"), (mode, t, qm, p), (
+                    lambda m=mode, t=t, q=qm, p=p:
+                        tp.miller_step_plain(m, t, q, p))
+
+    @staticmethod
+    def launch(torch, entries, _kname, args):
+        from halo2_verifier_tpu_torch.ops import kernels
+        from halo2_verifier_tpu_torch.ops import pairing as tp
+
+        mode, t, q, (px, py) = args
+        t_out = torch.empty_like(t)
+        line = torch.empty((16, 12, t.shape[2]), dtype=torch.int32,
+                           device=t.device)
+        fused = entries.get("h2v_miller_step")
+        if fused is not None:
+            return (lambda: fused(
+                t.data_ptr(), None if q is None else q.data_ptr(),
+                px.data_ptr(), px.stride(0), py.data_ptr(), py.stride(0),
+                t_out.data_ptr(), line.data_ptr(), t.shape[2], mode,
+                torch.cuda.current_stream().cuda_stream)), (t_out, line)
+        # the wrappers launch this version's kernels while it runs
+        shim = types.SimpleNamespace(**entries)
+
+        def composed():
+            saved = dict(kernels._libs)
+            kernels._libs.update({"tower.cu": shim, "mont_mul.cu": shim})
+            try:
+                got_t, got_line = compose_step(tp, mode, t, q, px, py)
+            finally:
+                kernels._libs.clear()
+                kernels._libs.update(saved)
+            t_out.copy_(got_t)
+            line.copy_(got_line)
+            return 0
+        return composed, (t_out, line)
+
+
 KINDS = {"point_add": PointAdd, "sqrt": Sqrt, "fq12_mul": Fq12Mul,
-         "fq_inv": FqInv}
+         "fq_inv": FqInv, "miller_step": MillerStep}
 
 
 def frontier(torch, np, rng, width, dev):
@@ -417,14 +541,23 @@ def build_all(kernels, kind, variants):
                                    f"{src}'s build, only {list(report[src])}")
             rep = ({"kernel": found[0][0], **found[0][1]} if found
                    else {"kernel": kind.composed})
+            if len(found) > 1:  # the largest of every instantiation's
+                rep = {"kernel": kind.labels[kname] + "<*>",
+                       **{f: max(r.get(f) or 0 for _, r in found)
+                          for f in ("registers", "spill_bytes", "sass")},
+                       "instantiations": {
+                           k: {f: r.get(f) for f in
+                               ("registers", "spill_bytes", "sass")}
+                           for k, r in found}}
             built[(name, kname)] = (entries, rep)
     return built
 
 
-def device_ms(torch, run, reps):
+def device_ms(torch, run, reps, names=None):
     """Device milliseconds per call of run(): the profiler's kernel
     events over `reps` calls, summed (a composition's launches
-    together)."""
+    together); with `names`, only the kernels whose name holds one of
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -435,7 +568,8 @@ def device_ms(torch, run, reps):
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset")))
+             and not e.name.startswith(("Memcpy", "Memset"))
+             and (names is None or any(n in e.name for n in names)))
     return us / reps / 1e3 if us else None
 
 
@@ -519,6 +653,9 @@ def main(argv=None):
         for run, row in runs.values():
             row["ms"] = (row["ms_round0"] + row["ms_round1"]) / 2
             row["device_ms"] = device_ms(torch, run, args.reps)
+            if hasattr(kind, "package_kernels"):
+                row["device_ms_package"] = device_ms(
+                    torch, run, args.reps, kind.package_kernels)
         del want
     for row in results:
         print(json.dumps({**row, "card": smi}), flush=True)

@@ -20,7 +20,7 @@ from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
 from halo2_verifier_tpu_torch.ops import pairing as tp
 from halo2_verifier_tpu_torch.ops.constants import (
     FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, fq12_edge_pairs,
-    fq_edge_triples, sqrt_edge_xs)
+    fq_edge_triples, miller_step_edge_lanes, sqrt_edge_xs)
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -249,6 +249,12 @@ def test_wrappers_refuse_cpu_tensors(cuda):
     with pytest.raises(ValueError):  # not a (16, 12, B) stack
         kernels.fq12_mul(x[:, :6].contiguous().to(cuda),
                          x[:, :6].contiguous().to(cuda))
+    T = torch.zeros((16, 4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.miller_step(kernels.MILLER_ADD, T, T, p16[0], p16[1])
+    with pytest.raises(ValueError):  # P on another device than T
+        kernels.miller_step(kernels.MILLER_DOUBLE, T.to(cuda), None,
+                            p16[0], p16[1])
 
 
 @pytest.mark.parametrize("backend", ["u16", "f8"])
@@ -458,16 +464,48 @@ def test_fq_inv_kernel_matches_plain(cuda, spec):
     assert int(got[:, vals.index(0)].abs().sum()) == 0
 
 
+def _step_operands(width, seed, dev):
+    """(T, Q, (px, py)) Miller step operands of `width` lanes: the edge
+    lanes of constants.miller_step_edge_lanes first, seeded random
+    canonical values after; px and py rows of one (2, 16, width) tensor,
+    as pairing_product holds them."""
+    lanes = miller_step_edge_lanes()[:width]
+    rng = np.random.default_rng(seed)
+    lanes += [tuple(int.from_bytes(rng.bytes(32), "little") % P
+                    for _ in range(10)) for _ in range(width - len(lanes))]
+    cols = [_limbs_t([lane[c] for lane in lanes], dev) for c in range(10)]
+    P_ = torch.stack(cols[8:])
+    return (torch.stack(cols[:4], dim=1), torch.stack(cols[4:8], dim=1),
+            (P_[0], P_[1]))
+
+
+@pytest.mark.parametrize("width", [1, 2, 33, 16384])
+def test_miller_step_kernel_matches_plain(cuda, width):
+    """The Miller step in both modes, at the pairing's widths, past one
+    warp and at 16,384 lanes, edge lanes included (a zero denominator in
+    each mode), against the plain version; one launch each."""
+    T, Q, P_ = _step_operands(width, 25 + width, cuda)
+    for mode, q in ((kernels.MILLER_DOUBLE, None), (kernels.MILLER_ADD, Q)):
+        before = kernels.LAUNCHES["miller_step"]
+        got_t, got_line = tp._miller_step(mode, T, q, P_)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["miller_step"] == before + 1
+        want_t, want_line = tp.miller_step_plain(mode, T, q, P_)
+        assert torch.equal(got_t, want_t)
+        assert torch.equal(got_line, want_line)
+
+
 # kernel launches of one device pairing check of two live pairs
-PAIRING_LAUNCHES = {"mont_mul": 587, "fq_addsub": 5335, "fq12_mul": 1318,
-                    "fq_inv": 103}
+PAIRING_LAUNCHES = {"mont_mul": 13, "fq_addsub": 501, "fq12_mul": 1318,
+                    "fq_inv": 1, "miller_step": 102}
 
 
 def test_device_pairing_on_card(cuda):
     """The device pairing on the card: Miller lanes equal the oracle's,
     the bilinearity verdicts the oracle's; a check launches K1, T1, the
-    fused Fq12 multiply and T3 as many times as the dispatch counts on
-    the CPU (tests/test_torch_fq12_fused.py), and no T2."""
+    fused Fq12 multiply, T3 and the Miller step as many times as the
+    dispatch counts on the CPU (tests/test_torch_fq12_fused.py), and no
+    T2."""
     pairs = [(hc.g1_mul(G1_GEN, 3), hc.g2_mul(G2_GEN, 5)),
              (hc.g1_mul(G1_GEN, 7), hc.g2_mul(G2_GEN, 11))]
     g1 = np.stack([tp.mont_cols([p[0] for p, _ in pairs]),

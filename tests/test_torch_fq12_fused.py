@@ -389,8 +389,10 @@ def test_dispatch_counts_per_check(monkeypatch):
     """One device pairing check of two live pairs, on the CPU, counted at
     the dispatch points that launch one kernel each on the card: 1,318
     fused Fq12 multiplies (166 in the Miller loop, 2 in the easy part, 1
-    for the lane product, 389 + 760 in the hard part), 587 K1, 5,335 T1,
-    103 T3 and no T2."""
+    for the lane product, 389 + 760 in the hard part), 102 Miller steps
+    (64 doublings, 38 additions), 13 K1, 501 T1 and 1 T3 (the final
+    exponentiation and the twist; the steps' own arithmetic runs on the
+    plain bodies, which no dispatch point counts) and no T2."""
     counts = collections.Counter()
 
     def counted(mod, name, kernel):
@@ -404,15 +406,18 @@ def test_dispatch_counts_per_check(monkeypatch):
     counted(tp, "fq12_mul_stack", "fq12_mul")
     counted(tp, "_linear_combine", "fq_linmap")
     counted(tp, "_finv", "fq_inv")
+    counted(tp, "_miller_step", "miller_step")
     for name in ("_fadd", "_fsub", "_fneg"):
         counted(tp, name, "fq_addsub")
     counted(fm, "mont_mul", "mont_mul")
     good = [(hc.g1_mul(G1_GEN, 6), hc.g2_mul(G2_GEN, 13)),
             (hc.g1_neg(hc.g1_mul(G1_GEN, 78)), G2_GEN)]
     assert tp.pairing_check_device(good, torch.device("cpu")) is True
-    assert dict(counts) == {"fq12_mul": 1318, "mont_mul": 587,
-                            "fq_addsub": 5335, "fq_inv": 103}
+    assert dict(counts) == {"fq12_mul": 1318, "miller_step": 102,
+                            "mont_mul": 13, "fq_addsub": 501, "fq_inv": 1}
     hard = int(tp._HARD_BITS.sum()) + len(tp._HARD_BITS) - 1
     assert hard == 389 + 760
+    steps = len(tp._ATE_BITS) + int(tp._ATE_BITS.sum()) + 2
+    assert steps == 102 and len(tp._ATE_BITS) == 64
     miller = 2 * len(tp._ATE_BITS) + int(tp._ATE_BITS.sum()) + 2
     assert miller == 166 and miller + 2 + 1 + hard == 1318
