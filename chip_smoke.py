@@ -20,7 +20,8 @@ Phases, one output line each (JSON unless noted):
    level-0 frontier on phase 4's plan (532,480 lanes from 17,408 points:
    the plan's repeated indices, (0, 0) points and the identity pad);
    at scan widths: the doubling at 2^19 lanes (random points, identities,
-   outputs of an earlier add), the 8-bit-limb Montgomery multiply (Fq and
+   outputs of an earlier add; the edge triples at 1, 33 and 2^19 lanes,
+   their outputs doubled again), the 8-bit-limb Montgomery multiply (Fq and
    Fr, 16,384 and 532,480 lanes) and the 8-bit-limb point add at 532,480
    lanes on the point add's cases and edge triples; across formats, 2P
    against P + P as
@@ -157,10 +158,15 @@ ADD8 = (0, 8, 0)
 LINMAP_REDUCE = (8 * 2, 16, 0)
 LOAD16, STORE16 = (0, 8, 0), (0, 16, 0)
 LOAD8, STORE8 = (0, 8, 32), (0, 32, 32)
-# doubling (RCB15 alg. 9): 8 products, 14 adds/subtracts, 3 loads and 3
-# stores
-OPS_POINT_DOUBLE = ops((8, MONT_MUL), (14, ADD_SUB), (3, LOAD16),
-                       (3, STORE16))
+# doubling (RCB15 alg. 9) at its least work: the squares Y^2 and Z^2, six
+# other products, less the reduction that Y3 = t2 z3 + t0m y3 saves by
+# summing its two products before one reduction (64 word products of 2
+# multiply-adds, 8 factors, a conditional subtract), and 12 adds or
+# subtracts (8 t0 by three doublings, 9 Z^2 by four adds, y3, 3 t2 and
+# t0 - 3 t2, 2 X3); 3 loads and 3 stores: 1,864 multiply-adds.
+SHARED_REDC = (-(64 * 2 + 8), -16, 0)
+OPS_POINT_DOUBLE = ops((2, MONT_SQR), (6, MONT_MUL), (1, SHARED_REDC),
+                       (12, ADD_SUB), (3, LOAD16), (3, STORE16))
 
 
 def ops_linmap(M):
@@ -469,21 +475,46 @@ def check_limbs8(torch, name, *ts):
 
 def phase_k3(torch, np, hc, fm, curve, ints_to_limbs, dev, width):
     """The doubling at `width` lanes: random points, negatives and
-    identities, then outputs of an earlier add (general Z). Across
-    kernels: 2P and the add kernel's P + P are the same affine points."""
+    identities, then outputs of an earlier add (general Z); then off-curve
+    triples, the edge triples (constants.double_edge_triples) in the first
+    lanes of random canonical ones, at 1, 33 and `width` lanes, each
+    doubled and its output doubled again. Across kernels: 2P and the add
+    kernel's P + P are the same affine points."""
+    from halo2_verifier_tpu_torch.ops.constants import double_edge_triples
+
     f, iL, iR, _mask, pool = add_case(torch, np, hc, fm, curve,
                                       ints_to_limbs, dev, width)
     worst = 0
     for p in (f, curve.masked_add(f, f, iL=iL, iR=iR)):
         got = curve.double(p)
         worst = max(worst, max_abs_err(torch, got, curve.double_plain(p)))
+    edge = double_edge_triples()
+    rng = np.random.default_rng(4)
+    coords = []
+    for c in range(3):
+        limbs = random_field(np, rng, fm.FQ.modulus, width)
+        limbs[:len(edge)] = ints_to_limbs([t[c] for t in edge])
+        coords.append(torch.from_numpy(
+            limbs.T.astype(np.int32).copy()).to(dev))
+    by_width = {}
+    for lanes in (1, 33, width):
+        p = tuple(c[:, :lanes].contiguous() for c in coords)
+        err = 0
+        for _ in range(2):  # then the kernel's own output
+            got = curve.double(p)
+            err = max(err, max_abs_err(torch, got, curve.double_plain(p)))
+            p = got
+        by_width[str(lanes)] = err
     n = len(pool)
     head = tuple(c[:, :n].contiguous() for c in f)
     doubled = curve.to_affine_host(curve.double(head))
     same_point = (doubled == curve.to_affine_host(curve.add(head, head))
                   == [hc.g1_double(q) for q in pool])
     return {"phase": "parity_point_double", "tolerance": 0, "lanes": width,
-            "max_abs_err": worst, "double_equals_self_add_affine": same_point,
+            "max_abs_err": max(worst, *by_width.values()),
+            "max_abs_err_edge_triples_by_lanes": by_width,
+            "edge_lanes": len(edge),
+            "double_equals_self_add_affine": same_point,
             "affine_points_checked": n}
 
 

@@ -1,6 +1,8 @@
 // Radix-2^29 Montgomery arithmetic for BN254 Fq and Fr: the arithmetic of
 // the one-warp exponentiation chains, the decomp pre-pass's square root
-// (mont_mul.cu) and the Fermat inversion (tower.cu).
+// (mont_mul.cu) and the Fermat inversion (tower.cu), and of the doubling
+// (point_double.cu), where its products cost fewer instructions than the
+// word products' carry chains.
 //
 // Why a second arithmetic beside field.cuh's: a chain of dependent
 // products at a few lanes per warp is bound by one product's latency, and
@@ -115,6 +117,26 @@ __device__ __forceinline__ E29 sqr29(const E29& a) {
     return redc29<F>(t);
 }
 
+// (a b + c d) 2^-261 mod N: both products summed into one set of columns,
+// then one redc29. With limbs below 2^29 in a, b and c and below 2^30 in
+// d, a column holds at most 9 * 2^58 + 9 * 2^59 + the reduction's 9 * 2^58
+// < 2^63.2, and the result is below (ab + cd) / 2^261 + N.
+template <int F>
+__device__ __forceinline__ E29 mul2_29(const E29& a, const E29& b,
+                                       const E29& c, const E29& d) {
+    uint64_t t[17];
+#pragma unroll
+    for (int k = 0; k < 17; ++k) t[k] = 0;
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+#pragma unroll
+        for (int j = 0; j < 9; ++j) {
+            t[i + j] += (uint64_t)a.l[i] * b.l[j];
+            t[i + j] += (uint64_t)c.l[i] * d.l[j];
+        }
+    return redc29<F>(t);
+}
+
 // a * 2^-261 mod N (out of Montgomery form), at most N.
 template <int F>
 __device__ __forceinline__ E29 from_mont29(const E29& a) {
@@ -138,15 +160,74 @@ __device__ __forceinline__ E29 normalize29(const E29& a) {
     return r;
 }
 
+// Exact limbs of x * 2^S for x < 2^256 (S <= 5, so the value stays below
+// 2^261): limb j holds bits [29 j - S, 29 j - S + 29) of x.
+template <int S = 0>
 __device__ __forceinline__ E29 from_words(const Fe& x) {
     E29 r;
 #pragma unroll
     for (int j = 0; j < 9; ++j) {
-        const int bit = 29 * j, k = bit >> 5, s = bit & 31;
-        uint32_t v = x.w[k] >> s;
-        if (s > 3 && k + 1 < 8) v |= x.w[k + 1] << (32 - s);
+        const int bit = 29 * j - S;
+        uint32_t v;
+        if (bit < 0) {
+            v = x.w[0] << -bit;
+        } else {
+            const int k = bit >> 5, s = bit & 31;
+            v = x.w[k] >> s;
+            if (s > 3 && k + 1 < 8) v |= x.w[k + 1] << (32 - s);
+        }
         r.l[j] = v & kMask29;
     }
+    return r;
+}
+
+// Exact limbs of a * 2^K for exact limbs a (limb 8 takes the top bits).
+template <int K>
+__device__ __forceinline__ E29 shl29(const E29& a) {
+    E29 r;
+    r.l[0] = (a.l[0] << K) & kMask29;
+#pragma unroll
+    for (int j = 1; j < 8; ++j)
+        r.l[j] = ((a.l[j] << K) & kMask29) | (a.l[j - 1] >> (29 - K));
+    r.l[8] = (a.l[8] << K) | (a.l[7] >> (29 - K));
+    return r;
+}
+
+// a / 2 mod N for limbs below 2^30: a + N if a is odd (its parity is limb
+// 0's), then halved, each odd limb's half bit moved into the limb below.
+// The value is (a + N) / 2 at most; limbs stay below 2^30.
+template <int F>
+__device__ __forceinline__ E29 half29(const E29& a) {
+    const uint32_t odd = 0u - (a.l[0] & 1u);
+    uint32_t u[9];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) u[j] = a.l[j] + (MOD29[F][j] & odd);
+    E29 r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.l[j] = (u[j] >> 1) + ((u[j + 1] & 1u) << 28);
+    r.l[8] = u[8] >> 1;
+    return r;
+}
+
+// a - q N for q = floor(a_8 / (N_8 + 1)) on the exact limbs of a < 2^258:
+// q N <= q (N_8 + 1) 2^232 <= a, and a - q N < (N_8 + q + 1) 2^232 <=
+// N + 2^237, so the result, in exact limbs, is below 2N. Both moduli have
+// the top limb N_8 = 0x30644e, so q is a division by a constant.
+template <int F>
+__device__ __forceinline__ E29 reduce_top29(const E29& a) {
+    constexpr uint32_t kTop29 = 0x0030644eu;
+    const E29 e = normalize29(a);
+    const uint32_t q = e.l[8] / (kTop29 + 1);
+    E29 r;
+    int64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int64_t s =
+            (int64_t)e.l[j] - (int64_t)((uint64_t)q * MOD29[F][j]) + c;
+        r.l[j] = (uint32_t)s & kMask29;
+        c = s >> 29;  // arithmetic: floor
+    }
+    r.l[8] = (uint32_t)((int64_t)e.l[8] - (int64_t)q * kTop29 + c);
     return r;
 }
 

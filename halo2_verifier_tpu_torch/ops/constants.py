@@ -144,6 +144,21 @@ def miller_step_edge_lanes():
                     for j in range(n)]
 
 
+def double_edge_triples():
+    """(X, Y, Z) operands at the doubling's edges, canonical Fq values in
+    Montgomery form (the doubling is field arithmetic on any triple): the
+    identity (0 : R : 0), all zeros, a zero in each coordinate, each
+    FOLD_EDGE pair in its products X*Y and Y*Z and its squares, then every
+    FQ_EDGE value in every coordinate."""
+    e, n = FQ_EDGE, len(FQ_EDGE)
+    triples = [(0, MONT_R_FQ, 0), (0, 0, 0), (0, e[2], e[3]),
+               (e[2], 0, e[3]), (e[2], e[3], 0), (P - 1, P - 1, P - 1)]
+    for u, v in FOLD_EDGE:
+        triples += [(u, v, v), (v, u, u), (u, u, v), (v, v, u)]
+    return triples + [tuple(e[(j + s * c) % n] for c in range(3))
+                      for s in (1, 2, 5) for j in range(n)]
+
+
 def sqrt_edge_xs():
     """x operands at the square root's edges: FQ_EDGE, and the first x
     whose x^3 + 3 is a non-residue (off the curve: its root fails the

@@ -48,6 +48,11 @@ dispatching helpers, whose T1, K1 and T3 launches go to that version's
 kernels; `device_ms_package` sums those launches' device time alone
 (`device_ms` adds the composition's torch ops).
 
+point_double: the complete doubling K3 (csrc/point_double.cu
+h2v_point_double) per block size and minimum blocks per SM
+(point_double.cu DoubleShape), at the doubling path's 524,288 lanes and
+at 32 (one warp).
+
 --parent NAME=DIR (repeatable) adds another version's csrc/ directory as
 a variant, built and timed as it stands, to compare versions on one card
 in one call (unpack one with `git archive <commit>
@@ -58,7 +63,7 @@ Prints one JSON line per variant and launch, then the table and the
 card's name and power limit. Needs a CUDA card.
 
 Usage: python3 sweep_kernels.py {point_add,sqrt,fq12_mul,fq_inv,
-                                 miller_step}
+                                 miller_step,point_double}
                                 [--reps N] [--parent NAME=DIR ...]
 """
 
@@ -82,6 +87,7 @@ FOREST_FRONTIER = 524288
 ACTIVE_SHARE = 0.97
 SQRT_LANES = (15360, 32)
 TOWER_LANES = (1, 2, 16384)
+DOUBLE_LANES = (524288, 32)
 
 
 class PointAdd:
@@ -471,8 +477,59 @@ class MillerStep:
         return composed, (t_out, line)
 
 
+class PointDouble:
+    """K3 per (block size, minimum blocks per SM) (point_double.cu
+    DoubleShape): the shipped shape first, then caps of 128 to 113
+    registers and none."""
+
+    header = "point_double.cu"
+    build_sources = ("point_double.cu",)
+    sources = {"point_double": "point_double.cu"}
+    labels = {"point_double": "point_double_kernel"}
+    variants = [(128, 4), (64, 8), (256, 2), (192, 3), (96, 6), (128, 1)]
+    fields = {"kThreads": r"static constexpr int kThreads = \d+;",
+              "kMinBlocks": r"static constexpr int kMinBlocks = \d+;"}
+    matches = 1
+
+    @staticmethod
+    def name(v):
+        block, blocks = v
+        return f"{block}x{blocks}"
+
+    @staticmethod
+    def values(v):
+        block, blocks = v
+        return {"kThreads": f"int kThreads = {block};",
+                "kMinBlocks": f"int kMinBlocks = {blocks};"}
+
+    @staticmethod
+    def cases(torch, np, dev):
+        """Seeded canonical triples (the doubling is field arithmetic on
+        any triple) at the doubling path's 524,288 lanes and one warp."""
+        from halo2_verifier_tpu_torch.ops import curve
+
+        rng = np.random.default_rng(12)
+        p = frontier(torch, np, rng, DOUBLE_LANES[0], dev)
+        for lanes in DOUBLE_LANES:
+            q = tuple(c[:, :lanes].contiguous() for c in p)
+            yield ("point_double", str(lanes)), (q,), (
+                lambda q=q: curve.double_plain(q))
+
+    @staticmethod
+    def launch(torch, entries, _kname, args):
+        fn = entries["h2v_point_double"]
+        (p,) = args
+        b = p[0].shape[1]
+        out = torch.empty((3, 16, b), dtype=torch.int32, device=p[0].device)
+        return (lambda: fn(*(c.data_ptr() for c in p),
+                           *(o.data_ptr() for o in out), b,
+                           torch.cuda.current_stream().cuda_stream)), tuple(
+                               out)
+
+
 KINDS = {"point_add": PointAdd, "sqrt": Sqrt, "fq12_mul": Fq12Mul,
-         "fq_inv": FqInv, "miller_step": MillerStep}
+         "fq_inv": FqInv, "miller_step": MillerStep,
+         "point_double": PointDouble}
 
 
 def frontier(torch, np, rng, width, dev):

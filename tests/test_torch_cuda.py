@@ -19,8 +19,8 @@ from halo2_verifier_tpu_torch.ops import hostpairing as hp
 from halo2_verifier_tpu_torch.ops import kernels, msm_forest, msm_scan
 from halo2_verifier_tpu_torch.ops import pairing as tp
 from halo2_verifier_tpu_torch.ops.constants import (
-    FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, fq12_edge_pairs,
-    fq_edge_triples, miller_step_edge_lanes, sqrt_edge_xs)
+    FOLD_EDGE, FQ_EDGE, G1_GEN, G2_GEN, P, R, double_edge_triples,
+    fq12_edge_pairs, fq_edge_triples, miller_step_edge_lanes, sqrt_edge_xs)
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
@@ -113,7 +113,10 @@ def _to8(p):
 
 def test_point_double_kernel_matches_plain(cuda):
     """K3 on random points, negatives and identities, then on its own
-    output so Z is general; 2P equals the add kernel's P + P as a point."""
+    output so Z is general; 2P equals the add kernel's P + P as a point.
+    Then off-curve: the edge triples in the first lanes of seeded
+    canonical triples at 1, 33 and 524,288 lanes, each output doubled
+    again."""
     base = _points(1500)
     pool = base + [hc.g1_neg(p) for p in base[:500]] + [None] * 48
     p = _projective(pool, cuda)
@@ -129,6 +132,24 @@ def test_point_double_kernel_matches_plain(cuda):
     src = _projective(pool, cuda)
     assert curve.to_affine_host(curve.double(src)) == curve.to_affine_host(
         curve.add(src, src)) == [hc.g1_double(q) for q in pool]
+    edge = double_edge_triples()
+    width = 524288
+    rng = np.random.default_rng(11)
+    coords = []
+    for c in range(3):
+        vals = ([t[c] for t in edge]
+                + [int.from_bytes(rng.bytes(32), "little") % P
+                   for _ in range(2048 - len(edge))])
+        coords.append(_limbs_t(vals, cuda).repeat(1, width // 2048))
+    for lanes in (1, 33, width):
+        p = tuple(c[:, :lanes].contiguous() for c in coords)
+        for _ in range(2):
+            got = curve.double(p)
+            want = curve.double_plain(p)
+            torch.cuda.synchronize()
+            for o, w in zip(got, want):
+                assert torch.equal(o, w), lanes
+            p = got
 
 
 @pytest.mark.parametrize("spec", [fm.FQ, fm.FR], ids=["fq", "fr"])
