@@ -60,6 +60,20 @@ Phases, one output line each (JSON unless noted):
    MSMs run on the host); T2 through its entry, ops/pairing.py
    _linear_combine, on the three Fq12 maps at 16,384 lanes (the pairing
    runs its maps inside the fused multiply);
+   bench.py's two k=9 configurations at its sizes (7 batches of 256),
+   their keys derived by the port's prover (prover/keygen.py) from the
+   tracked k=9 SRS and checked against the committed packs' vk hashes:
+   keccak256 x GWC mac_range proofs (keccak_gwc_path, then
+   tampered_batch_keccak_gwc) and mac_range and vector_mul proofs
+   alternating in each batch under vk=None (hetero_vk_path, then
+   tampered_batch_hetero_vk, the tampered proof a vector_mul one), each
+   with the forest's kernels alone; the verify command (cli_path): the
+   port's CLI in this process on files it writes (convert-params' params,
+   the vk, a keccak256 x GWC and a blake2b x SHPLONK proof), OK and 0 with
+   the forest's kernels, FAIL and 1 on four probes (tampered instances,
+   the wrong hash, the wrong multiopen, a truncated proof), and once as a
+   subprocess on the card, exit 0; each kernel's row gives its launches
+   on these paths (launches_k9_paths);
 6. kernel timings on the arguments of each kernel's widest launch on its
    path (the wrappers keep them), each the profiler's device time per
    launch (CUDA events around 20 calls beside it), beside the plain
@@ -99,6 +113,10 @@ SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
 POINT_DOUBLE_WIDTH = 524288
 MONT_MUL8_WIDTHS = (16384, SCAN_LANES)
 SCAN_BATCHES = {"u16": 8, "f8": 4}
+K9_BATCH = 256                       # bench.py run_extras' defaults
+K9_BATCHES = 7                       # (H2V_BENCH_EXTRA_BATCH, _BATCHES)
+FOREST_KERNELS = ("forest_frontier0", "point_add", "sqrt_principal")
+HERE = os.path.dirname(os.path.abspath(__file__))
 TOWER_WIDTHS = (1, 2, 16384)         # the pairing's widths (two live pairs)
 DEVICE_PAIRING_BATCHES = 8            # the paced rate spans 5 intervals
 SINGLE_PROOFS = 8
@@ -700,17 +718,22 @@ def phase_scan_msm(torch, msm_scan, msm, weights, case, dev):
             (x, y, idx, keys, len(sizes), levels, dev))
 
 
+def tile(items, n):
+    """n items cycling through `items` (bench.py's batches)."""
+    return [items[i % len(items)] for i in range(n)]
+
+
 def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
-                 expect, **verifier_args):
+                 expect, batch_size=BATCH, **verifier_args):
     """One path through the entry point: a stream of n_batches batches of
-    1,024 proofs on a fresh verifier, every batch ok. The launch counts
-    are set to 0 just before the stream and read just after it; every
-    kernel named in `expect` must have launched, and no other kernel of
-    the other limb format may have. Returns the phase line, the path's
-    record (launches, lanes, widest launches, batches) and the warm
-    verifier."""
+    batch_size proofs (the fixture's items tiled; an item may carry its
+    own vk) on a fresh verifier, every batch ok. The launch counts are set
+    to 0 just before the stream and read just after it; every kernel named
+    in `expect` must have launched, and no other kernel may have. Returns
+    the phase line, the path's record (launches, lanes, widest launches,
+    batches) and the warm verifier."""
     params, vk, items = fixture
-    batch = [items[i % len(items)] for i in range(BATCH)]
+    batch = tile(items, batch_size)
     bv = BatchVerifier(params, vk, **verifier_args)
     stamps = []
     kernels.reset_launches(record=True)
@@ -733,16 +756,16 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
         if name not in expect and n != 0:
             raise AssertionError(f"{phase}: kernel {name} launched {n} "
                                  "times on a path that does not hold it")
-    steady = (len(stamps) - 1) * BATCH / (stamps[-1] - stamps[0])
+    steady = (len(stamps) - 1) * batch_size / (stamps[-1] - stamps[0])
     # a result is yielded two batches late, and the last two together when
     # the stream ends, so over a few batches the rate above reads high
     # (by 7/5 over 8 batches); the paced rate leaves those two out, and
     # the main thread's three timed stages are summed beside it
-    paced = (len(stamps) - 3) * BATCH / (stamps[-3] - stamps[0])
+    paced = (len(stamps) - 3) * batch_size / (stamps[-3] - stamps[0])
     main_thread = sum(bv.timings.totals[k] for k in
                       ("host_replay", "host_assemble", "device_msm_dispatch"))
     result = {
-        "phase": phase, "batches": n_batches, "batch_size": BATCH,
+        "phase": phase, "batches": n_batches, "batch_size": batch_size,
         **{k: str(v) for k, v in verifier_args.items()},
         "all_ok": True, "fast_path": "vm_raw",
         "proofs_per_s_steady": round(steady, 1),
@@ -756,6 +779,8 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
         "point_adds_dispatched": bv.point_adds_dispatched,
         "msm_entries_dispatched": bv.msm_entries_dispatched,
         "decomp_points_dispatched": bv.decomp_points_dispatched,
+        "point_adds_per_batch": bv.point_adds_dispatched / n_batches,
+        "msm_entries_per_batch": bv.msm_entries_dispatched / n_batches,
         "launches": launches,
         "launches_per_batch": {k: round(v / n_batches, 2)
                                for k, v in launches.items() if v},
@@ -768,12 +793,16 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
 
 def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
                  **verifier_args):
+    """A TAMPER_BATCH-proof batch of the fixture's items (tiled), the one
+    at TAMPER_INDEX with its first public input + 1 (and its own vk, if
+    the items carry one), must fail at exactly that index."""
     from halo2_verifier_tpu_torch.ops.constants import R
 
     params, vk, items = fixture
-    batch = list(items[:TAMPER_BATCH])
-    p, inst = batch[TAMPER_INDEX]
-    batch[TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
+    batch = tile(items, TAMPER_BATCH)
+    p, inst, *own_vk = batch[TAMPER_INDEX]
+    batch[TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]],
+                           *own_vk)
     bv = BatchVerifier(params, vk, **verifier_args)
     kernels.reset_launches()
     (res,) = list(bv.verify_stream([batch]))
@@ -784,6 +813,163 @@ def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
     return {"phase": phase, "proofs": TAMPER_BATCH,
             "ok": res.ok, "failed_indices": res.failed_indices,
             "launches": dict(kernels.LAUNCHES)}
+
+
+def k9_workloads():
+    """bench.py run_extras' two k=9 configurations at its sizes, with the
+    keys derived by this package's prover from the tracked k=9 SRS and the
+    proofs from the committed packs (load_pack checks each key's sha256
+    against its pack's, so a keygen that differs from the reference's
+    fails here): the mac_range circuit (k=9, 300 rows, 10 public inputs)
+    and the vector_mul circuit (k=9, 4 products). Returns the setup line
+    and {params, mac_vk, keccak_gwc, mac, mixed}: the 16 keccak256 x GWC
+    proofs, the 8 blake2b x SHPLONK mac proofs, and K9_BATCH (proof,
+    instances, vk) triples alternating mac (even index) and vector_mul
+    (odd) proofs as bench.py builds them."""
+    from halo2_verifier_tpu_torch.prover.circuits import (
+        mac_range_spec, vector_mul_spec)
+    from halo2_verifier_tpu_torch.prover.fixtures import load_pack
+    from halo2_verifier_tpu_torch.prover.keygen import keygen
+    from halo2_verifier_tpu_torch.prover.srs import load_srs
+
+    t0 = time.perf_counter()
+    srs = load_srs(9)
+    t_srs = time.perf_counter() - t0
+    mac_spec, mac_mk = mac_range_spec(9, 300, 10)
+    mac_pk = keygen(mac_spec, srs)
+    vm_spec, vm_mk_raw = vector_mul_spec(9, 4)
+    vm_pk = keygen(vm_spec, srs)
+
+    def vm_mk(s):
+        return vm_mk_raw([int(s) + 2] * 4, [int(s) + 5] * 4)
+
+    keccak_gwc = load_pack("bench_mac_k9_keccak_gwc_pack", mac_pk, mac_mk,
+                           list(range(16)), hash_name="keccak256",
+                           multiopen="gwc")
+    mac = load_pack("bench_mac_k9_pack", mac_pk, mac_mk, list(range(8)))
+    vm = load_pack("bench_vm_k9_pack", vm_pk, vm_mk, list(range(8)))
+    mixed = [(*mac[(i // 2) % len(mac)], mac_pk.vk) if i % 2 == 0
+             else (*vm[(i // 2) % len(vm)], vm_pk.vk)
+             for i in range(K9_BATCH)]
+    line = {"phase": "k9_setup", "load_srs_seconds": round(t_srs, 3),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "packs": {"bench_mac_k9_keccak_gwc_pack": len(keccak_gwc),
+                      "bench_mac_k9_pack": len(mac),
+                      "bench_vm_k9_pack": len(vm)},
+            "vk_sha256_equal_to_packs": True}
+    return line, {"params": srs.verifier_params(), "mac_vk": mac_pk.vk,
+                  "keccak_gwc": keccak_gwc, "mac": mac, "mixed": mixed}
+
+
+def phase_cli(torch, kernels, k9):
+    """The verify command, through the port's CLI: the 164-byte params
+    from convert-params on the tracked k=9 SRS, the mac vk, one keccak256
+    x GWC proof of the pack and its instances written to a temporary
+    directory; cli.main(verify --multiopen gwc --hash keccak256) in this
+    process must print OK and return 0 with the forest kernels launched
+    (counts set to 0 just before, read just after) and no other; a
+    blake2b x SHPLONK proof with the defaults likewise; then the probes,
+    each FAIL and 1: the instances with one value + 1, --hash keccak256
+    on the blake2b proof, --multiopen gwc on the SHPLONK proof, and the
+    keccak256 proof cut to half its length. Last, the same OK verify as a
+    subprocess, `python -m halo2_verifier_tpu_torch.cli verify ...` on the
+    card, must exit 0."""
+    import contextlib
+    import io
+    import tempfile
+
+    from halo2_verifier_tpu_torch import cli
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        return rc, buf.getvalue().strip(), round(time.perf_counter() - t0, 3)
+
+    def instances_text(inst, bump=0):
+        col = [inst[0][0] + bump] + list(inst[0][1:])
+        return "\n".join(str(v) for v in col) + "\n"
+
+    res = {"phase": "cli_path"}
+    with tempfile.TemporaryDirectory(prefix="h2v_cli_") as d:
+        def put(name, data):
+            path = os.path.join(d, name)
+            with open(path, "wb" if isinstance(data, bytes) else "w") as f:
+                f.write(data)
+            return path
+
+        params = os.path.join(d, "params.bin")
+        rc, text, _ = run_cli(["convert-params",
+                               os.path.join(HERE, "params", "kzg_bn254_9.srs"),
+                               params])
+        if rc != 0 or os.path.getsize(params) != 164:
+            raise AssertionError(f"cli_path: convert-params rc={rc}: {text}")
+        res["params_bytes"] = os.path.getsize(params)
+        vk = put("vk.bin", k9["mac_vk"].to_bytes())
+        kg_proof, kg_inst = k9["keccak_gwc"][0]
+        bs_proof, bs_inst = k9["mac"][0]
+        kg = put("proof_keccak_gwc.bin", kg_proof)
+        kg_txt = put("instances_keccak_gwc.txt", instances_text(kg_inst))
+        bs = put("proof_blake2b_shplonk.bin", bs_proof)
+        bs_txt = put("instances_blake2b_shplonk.txt", instances_text(bs_inst))
+        gwc = ["--multiopen", "gwc", "--hash", "keccak256"]
+        ok_argv = ["verify", params, vk, kg, "--instances", kg_txt, *gwc]
+
+        kernels.reset_launches()
+        rc, text, secs = run_cli(ok_argv)
+        launches = dict(kernels.LAUNCHES)
+        if (rc, text) != (0, "OK"):
+            raise AssertionError(f"cli_path: verify gave {text!r}, rc={rc}")
+        for name, n in launches.items():
+            if (name in FOREST_KERNELS) != (n > 0):
+                raise AssertionError(f"cli_path: kernel {name} launched {n} "
+                                     "times")
+        res["verify_keccak_gwc"] = {"stdout": text, "rc": rc,
+                                    "seconds": secs,
+                                    "launches": {k: v for k, v in
+                                                 launches.items() if v}}
+        rc, text, secs = run_cli(["verify", params, vk, bs,
+                                  "--instances", bs_txt])
+        if (rc, text) != (0, "OK"):
+            raise AssertionError(f"cli_path: blake2b x SHPLONK verify gave "
+                                 f"{text!r}, rc={rc}")
+        res["verify_blake2b_shplonk"] = {"stdout": text, "rc": rc,
+                                         "seconds": secs}
+        probes = {
+            "tampered_instances": [kg, "--instances", put(
+                "instances_bad.txt", instances_text(kg_inst, 1)), *gwc],
+            "keccak256_on_blake2b_proof": [bs, "--instances", bs_txt,
+                                           "--hash", "keccak256"],
+            "gwc_on_shplonk_proof": [bs, "--instances", bs_txt,
+                                     "--multiopen", "gwc"],
+            "truncated_proof": [put("proof_truncated.bin",
+                                    kg_proof[:len(kg_proof) // 2]),
+                                "--instances", kg_txt, *gwc],
+        }
+        res["probes"] = {}
+        for name, args in probes.items():
+            rc, text, secs = run_cli(["verify", params, vk, *args])
+            if (rc, text) != (1, "FAIL"):
+                raise AssertionError(f"cli_path: probe {name} gave {text!r}, "
+                                     f"rc={rc}")
+            res["probes"][name] = {"stdout": text, "rc": rc,
+                                   "seconds": secs}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "halo2_verifier_tpu_torch.cli", *ok_argv],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or proc.stdout.strip() != "OK":
+            raise AssertionError(
+                f"cli_path: subprocess exit {proc.returncode}, stdout "
+                f"{proc.stdout.strip()!r}, stderr {proc.stderr[-2000:]!r}")
+        res["subprocess"] = {"argv": ["-m", "halo2_verifier_tpu_torch.cli",
+                                      "verify", "...", *gwc],
+                             "stdout": proc.stdout.strip(),
+                             "rc": proc.returncode,
+                             "seconds": round(time.perf_counter() - t0, 3)}
+    return res
 
 
 def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
@@ -1468,7 +1654,7 @@ def phase_profile(torch, bv, fixture, n_batches):
     from torch.profiler import ProfilerActivity, profile
 
     _params, _vk, items = fixture
-    batch = [items[i % len(items)] for i in range(BATCH)]
+    batch = tile(items, BATCH)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -1501,7 +1687,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, HERE)
     try:
         from halo2_verifier_tpu_torch.parallel.orchestrator import (
             BatchVerifier)
@@ -1567,9 +1753,10 @@ def run(torch, card, dev, n_batches, make_verifier):
 
     fixture = weights.load_k14_mac_fixture()
     records = {}
+    k9_records = {}
     main_res, records["main_path"], bv = phase_stream(
         torch, kernels, fixture, make_verifier, n_batches, "main_path",
-        ("forest_frontier0", "point_add", "sqrt_principal"))
+        FOREST_KERNELS)
     emit(main_res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch"))
@@ -1601,8 +1788,40 @@ def run(torch, card, dev, n_batches, make_verifier):
         torch, np, fm, pairing, kernels, ints_to_limbs, dev)
     emit(linmap_res)
 
+    # bench.py's k=9 configurations and the verify command; their launch
+    # counts stand beside each kernel's row, whose timing stays on the
+    # k=14 path's widest launch
+    k9_line, k9 = k9_workloads()
+    emit(k9_line)
+    keccak_gwc = (k9["params"], k9["mac_vk"], k9["keccak_gwc"])
+    res, k9_records["keccak_gwc_path"], _bv = phase_stream(
+        torch, kernels, keccak_gwc, make_verifier, K9_BATCHES,
+        "keccak_gwc_path", FOREST_KERNELS, batch_size=K9_BATCH,
+        multiopen="gwc", hash_name="keccak256")
+    emit(res)
+    emit(phase_tamper(torch, kernels, make_verifier, keccak_gwc,
+                      "tampered_batch_keccak_gwc", multiopen="gwc",
+                      hash_name="keccak256"))
+    # vk=None: every item carries its own vk; TAMPER_INDEX is odd, so the
+    # tampered proof is a vector_mul one
+    mixed = (k9["params"], None, k9["mixed"])
+    res, k9_records["hetero_vk_path"], _bv = phase_stream(
+        torch, kernels, mixed, make_verifier, K9_BATCHES, "hetero_vk_path",
+        FOREST_KERNELS, batch_size=K9_BATCH)
+    emit(res)
+    emit(phase_tamper(torch, kernels, make_verifier, mixed,
+                      "tampered_batch_hetero_vk"))
+    cli_res = phase_cli(torch, kernels, k9)
+    k9_records["cli_path"] = {
+        "launches": cli_res["verify_keccak_gwc"]["launches"]}
+    emit(cli_res)
+
     rows, beside = phase_timings(torch, card, kernels, records, curve, fm,
                                  f8, decomp)
+    for r in rows:
+        r["launches_k9_paths"] = {
+            path: rec["launches"].get(r["name"], 0)
+            for path, rec in k9_records.items()}
     emit(phase_forest_batch(torch, msm_forest, forest_inputs))
     for backend in ("u16", "f8"):
         emit(phase_scan_batch(torch, msm_scan, scan_inputs, backend))

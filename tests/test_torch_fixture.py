@@ -3,8 +3,10 @@
 derivation through the JAX package's test prover, and the port's params
 and vk loaders against the reference's codecs.
 
-The port may not import the prover, so the fixture stores the derived
-verifying key and the public inputs of every pack seed. Regenerate with
+The fixture stores the derived verifying key and the public inputs of
+every pack seed, so the main path reads them without a k=14 keygen (the
+port's own prover derives the same instances:
+tests/test_torch_prover.py). Regenerate with
 
     python tests/test_torch_fixture.py
 """
