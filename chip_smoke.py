@@ -74,6 +74,25 @@ Phases, one output line each (JSON unless noted):
    the wrong hash, the wrong multiopen, a truncated proof), and once as a
    subprocess on the card, exit 0; each kernel's row gives its launches
    on these paths (launches_k9_paths);
+   the mesh (parallel/mesh.py), whose sharded MSMs keep host
+   decompression (no sqrt launch), on the one card: mesh_path, a process
+   group of one NCCL rank in this process: phase 4's batch-sized MSM in
+   the window-sharded and the point-sharded forest (its all_to_all on
+   NCCL), each rank's totals bit-equal to the single-device forest's and
+   the points to the host MSM's, then BatchVerifier(mesh=...) over 8
+   streamed batches of 1,024 k=14 proofs (every batch ok, the frontier
+   and point-add kernels alone) and the tampered 64-proof batch;
+   mesh_ranks_path, four gloo ranks on cuda:0 (this script run as a rank,
+   `--mesh-rank R`, in four subprocesses after the build): the same MSM
+   in the windows, forest and scan (u16) kinds, each rank's launches
+   counted per kind (the frontier and point add on the forest kinds, the
+   Montgomery multiply and point add on the scan), rank 0 holding the
+   windows kind's totals to the single-device forest's bit for bit and
+   every kind's points to the host MSM's, then a 4-batch stream and the
+   tampered batch on every rank; its rate is four ranks sharing one
+   card, collectives through host memory: a check of the launch path,
+   not a multi-card rate; each kernel's row gives its launches there
+   (launches_mesh_paths);
 6. kernel timings on the arguments of each kernel's widest launch on its
    path (the wrappers keep them), each the profiler's device time per
    launch (CUDA events around 20 calls beside it), beside the plain
@@ -98,8 +117,10 @@ import argparse
 import collections
 import json
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 1024
@@ -116,6 +137,13 @@ SCAN_BATCHES = {"u16": 8, "f8": 4}
 K9_BATCH = 256                       # bench.py run_extras' defaults
 K9_BATCHES = 7                       # (H2V_BENCH_EXTRA_BATCH, _BATCHES)
 FOREST_KERNELS = ("forest_frontier0", "point_add", "sqrt_principal")
+MESH_KERNELS = ("forest_frontier0", "point_add")  # host decompression
+MESH_BATCHES = 8                     # the NCCL world of one
+MESH_RANKS = 4                       # gloo ranks sharing the card
+MESH_RANK_BATCHES = 4
+MESH_RANKS_LABEL = ("{ranks} ranks sharing one {card}, collectives through "
+                    "host memory (gloo)")
+MESH_RANK_TIMEOUT_S = 600
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOWER_WIDTHS = (1, 2, 16384)         # the pairing's widths (two live pairs)
 DEVICE_PAIRING_BATCHES = 8            # the paced rate spans 5 intervals
@@ -724,14 +752,16 @@ def tile(items, n):
 
 
 def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
-                 expect, batch_size=BATCH, **verifier_args):
+                 expect, batch_size=BATCH, decomp=True, **verifier_args):
     """One path through the entry point: a stream of n_batches batches of
     batch_size proofs (the fixture's items tiled; an item may carry its
     own vk) on a fresh verifier, every batch ok. The launch counts are set
     to 0 just before the stream and read just after it; every kernel named
-    in `expect` must have launched, and no other kernel may have. Returns
-    the phase line, the path's record (launches, lanes, widest launches,
-    batches) and the warm verifier."""
+    in `expect` must have launched, and no other kernel may have. The sqrt
+    pre-pass must have run, or with decomp=False (the mesh's host
+    decompression) must not have. Returns the phase line, the path's
+    record (launches, lanes, widest launches, batches) and the warm
+    verifier."""
     params, vk, items = fixture
     batch = tile(items, batch_size)
     bv = BatchVerifier(params, vk, **verifier_args)
@@ -748,8 +778,11 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
     widest = dict(kernels.WIDEST)
     if "host_assemble" not in bv.timings.totals:
         raise AssertionError("the VM fast path did not serve the stream")
-    if bv.decomp_points_dispatched == 0:
+    if decomp and bv.decomp_points_dispatched == 0:
         raise AssertionError("the sqrt pre-pass did not run")
+    if not decomp and bv.decomp_points_dispatched != 0:
+        raise AssertionError(f"{phase}: the sqrt pre-pass ran on a path "
+                             "that keeps host decompression")
     for name, n in launches.items():
         if name in expect and n == 0:
             raise AssertionError(f"{phase}: kernel {name} never launched")
@@ -766,7 +799,7 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
                       ("host_replay", "host_assemble", "device_msm_dispatch"))
     result = {
         "phase": phase, "batches": n_batches, "batch_size": batch_size,
-        **{k: str(v) for k, v in verifier_args.items()},
+        **{k: str(v) for k, v in verifier_args.items() if k != "mesh"},
         "all_ok": True, "fast_path": "vm_raw",
         "proofs_per_s_steady": round(steady, 1),
         "rate_basis": "marginal over batches 2..k",
@@ -1323,6 +1356,249 @@ def phase_single(torch, kernels, BatchVerifier, fixture):
     return out_
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_path(torch, np, kernels, msm_forest, fixture, BatchVerifier,
+                    forest_inputs, case):
+    """The mesh on one NCCL rank in this process (a process group of one):
+    phase 4's batch-sized MSM in the window-sharded and the point-sharded
+    forest (its bucket grid through all_to_all_single on NCCL), each
+    kind's totals bit-equal to the single-device forest's and its points
+    to the host MSM's; then BatchVerifier(mesh=...) over MESH_BATCHES
+    streamed batches (counts set to 0 just before, read just after; the
+    frontier and point-add kernels alone, host decompression) and the
+    tampered batch. Returns the line and the stream's record."""
+    from halo2_verifier_tpu_torch.parallel import dist, mesh as pmesh
+
+    x_np, y_np, plan, dev = forest_inputs
+    s_np, x, y, sizes, want = case
+    single = msm_forest.dispatch_planned(x_np, y_np, plan, dev).cpu().numpy()
+    if not dist.init_distributed(coordinator=f"127.0.0.1:{free_port()}",
+                                 num_processes=1, process_id=0,
+                                 backend="nccl", timeout=300):
+        raise AssertionError("mesh_path: no process group formed")
+    try:
+        mesh = pmesh.make_mesh(1)
+        if (mesh.backend, mesh.size, mesh.group is None) != ("nccl", 1,
+                                                            False):
+            raise AssertionError(f"mesh_path: mesh {mesh}")
+        kinds = {}
+        for kind, fn, combine in (
+                ("windows", pmesh.sharded_forest_by_windows,
+                 pmesh.combine_sharded_windows),
+                ("forest", pmesh.sharded_forest_window_totals,
+                 pmesh.combine_sharded_forest)):
+            stats = {}
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            arr = fn(mesh, x, y, s_np, sizes, stats=stats)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = arr.cpu().numpy()
+            kinds[kind] = {
+                "seconds": round(dt, 4), "wire": stats,
+                "totals_equal_single_device": bool(
+                    (pmesh.windows_in_order(got, len(sizes)) == single).all()),
+                "equal_to_host_msm": combine(got, len(sizes)) == want,
+                "launches": {k: v for k, v in kernels.LAUNCHES.items()
+                             if v}}
+            if not (kinds[kind]["totals_equal_single_device"]
+                    and kinds[kind]["equal_to_host_msm"]):
+                raise AssertionError(f"mesh_path: the {kind} kind differs "
+                                     "from the single-device forest")
+            if set(kinds[kind]["launches"]) != set(MESH_KERNELS):
+                raise AssertionError(f"mesh_path: the {kind} kind launched "
+                                     f"{kinds[kind]['launches']}")
+        res, record, bv = phase_stream(
+            torch, kernels, fixture, BatchVerifier, MESH_BATCHES,
+            "mesh_path", MESH_KERNELS, decomp=False, mesh=mesh)
+        res.update(mesh={"size": mesh.size, "backend": mesh.backend,
+                         "device": str(mesh.device)},
+                   mesh_wire_stats=bv.mesh_wire_stats, msm_kinds=kinds)
+        tamper = phase_tamper(torch, kernels, BatchVerifier, fixture,
+                              "tampered_batch_mesh", mesh=mesh)
+    finally:
+        dist.shutdown()
+    return res, record, tamper
+
+
+def phase_mesh_ranks(torch, np, card, case, forest_inputs, msm_forest):
+    """MESH_RANKS gloo ranks sharing the card: this script run with
+    --mesh-rank in MESH_RANKS subprocesses (the kernels are built), each
+    on cuda:0; they read phase 4's MSM and its answers from a temporary
+    directory and write their reports there. Any rank failing fails the
+    phase. Returns the line and each rank's launches over its three MSM
+    kinds and its stream."""
+    x_np, y_np, plan, dev = forest_inputs
+    s_np, x, y, sizes, want = case
+    single = msm_forest.dispatch_planned(x_np, y_np, plan, dev).cpu().numpy()
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="h2v_mesh_") as work:
+        np.savez(os.path.join(work, "case.npz"), s=s_np, x=x, y=y,
+                 sizes=np.asarray(sizes), single=single,
+                 want=np.asarray([[str(c) for c in p] for p in want]))
+        procs, logs = [], []
+        for r in range(MESH_RANKS):
+            env = dict(os.environ, H2V_COORDINATOR=f"127.0.0.1:{port}",
+                       H2V_NUM_PROCESSES=str(MESH_RANKS),
+                       H2V_PROCESS_ID=str(r), LOCAL_RANK=str(r))
+            # a file, not a pipe: a rank that writes much must not block
+            # before its collectives
+            logs.append(os.path.join(work, f"rank{r}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mesh-rank", str(r), "--mesh-dir", work], cwd=HERE,
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                try:
+                    p.wait(timeout=max(
+                        MESH_RANK_TIMEOUT_S - (time.perf_counter() - t0), 1))
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for path in logs:
+            with open(path) as f:
+                outs.append(f.read())
+        bad = [f"rank {r} exit {p.returncode}: {o[-3000:]}"
+               for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+        if bad:
+            raise AssertionError("mesh_ranks_path: " + "\n".join(bad))
+        reports = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    res = {"phase": "mesh_ranks_path", "ranks": MESH_RANKS,
+           "backend": "gloo", "device": reports[0]["device"],
+           "rate_label": MESH_RANKS_LABEL.format(ranks=MESH_RANKS,
+                                                 card=card.name),
+           "proofs_per_s_steady_by_rank": [
+               rep["stream"]["proofs_per_s_steady"] for rep in reports],
+           "tampered_failed_indices_by_rank": [
+               rep["tampered_failed_indices"] for rep in reports],
+           "seconds": round(time.perf_counter() - t0, 3),
+           "by_rank": reports}
+    return res, [rep["launches"] for rep in reports]
+
+
+def mesh_rank_main(torch, np, rank, work):
+    """One rank of mesh_ranks_path: its group from the H2V_* variables
+    (gloo, cuda:{LOCAL_RANK % device count}); phase 4's MSM in the
+    windows, forest and scan (u16) kinds, each kind's launches counted
+    on this rank; rank 0 holds the windows kind's totals to the
+    single-device forest's bit for bit; every kind's points equal the
+    host MSM's; then a MESH_RANK_BATCHES-batch stream, every batch ok,
+    and the tampered batch failing at TAMPER_INDEX. Writes
+    rank<R>.json into `work`; raises on any failure."""
+    from halo2_verifier_tpu_torch import weights
+    from halo2_verifier_tpu_torch.ops import kernels
+    from halo2_verifier_tpu_torch.ops.constants import R
+    from halo2_verifier_tpu_torch.parallel import dist, mesh as pmesh
+    from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
+
+    if not dist.init_distributed(backend="gloo", timeout=300):
+        raise AssertionError(f"rank {rank}: no process group formed")
+    try:
+        mesh = pmesh.make_mesh(MESH_RANKS)
+        if (mesh.rank, mesh.device.type) != (rank, "cuda"):
+            raise AssertionError(f"rank {rank}: mesh {mesh}")
+        z = np.load(os.path.join(work, "case.npz"))
+        sizes = [int(v) for v in z["sizes"]]
+        want = [tuple(int(c) for c in p) for p in z["want"]]
+        fixture = weights.load_k14_mac_fixture()
+        params, vk, items = fixture
+        report = {"rank": rank, "device": str(mesh.device), "kinds": {}}
+        expect = {"windows": MESH_KERNELS, "forest": MESH_KERNELS,
+                  "scan": ("mont_mul", "point_add")}
+        for kind, shard in (("windows", None), ("forest", "forest"),
+                            ("scan", "scan")):
+            bv = BatchVerifier(params, vk, mesh=mesh, mesh_shard=shard)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            handle = bv._dispatch_limbs(z["s"], z["x"], z["y"], sizes)
+            got = bv._collect_pair(handle)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            if got != want:
+                raise AssertionError(f"rank {rank}: the {kind} kind "
+                                     "differs from the host MSM")
+            if set(launches) != set(expect[kind]):
+                raise AssertionError(f"rank {rank}: the {kind} kind "
+                                     f"launched {launches}")
+            line = {"handle": handle[0], "seconds": round(dt, 4),
+                    "equal_to_host_msm": True, "launches": launches,
+                    "wire": bv.mesh_wire_stats}
+            if kind == "windows" and rank == 0:
+                totals = pmesh.windows_in_order(bv._fetch(handle[1]),
+                                                len(sizes))
+                if not (totals == z["single"]).all():
+                    raise AssertionError("rank 0: the windows kind's totals "
+                                         "differ from the single-device "
+                                         "forest's")
+                line["totals_equal_single_device"] = True
+            report["kinds"][kind] = line
+        batch = tile(items, BATCH)
+        bv = BatchVerifier(params, vk, mesh=mesh)
+        kernels.reset_launches()
+        stamps = []
+        t0 = time.time()
+        for r in bv.verify_stream(batch for _ in range(MESH_RANK_BATCHES)):
+            stamps.append(time.time())
+            if not r.ok:
+                raise AssertionError(f"rank {rank}: batch {len(stamps)} "
+                                     "failed")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if "host_assemble" not in bv.timings.totals:
+            raise AssertionError(f"rank {rank}: the VM fast path did not "
+                                 "serve the stream")
+        for name, n in launches.items():
+            if (name in MESH_KERNELS) != (n > 0):
+                raise AssertionError(f"rank {rank}: stream launched {name} "
+                                     f"{n} times")
+        if bv.decomp_points_dispatched:
+            raise AssertionError(f"rank {rank}: the sqrt pre-pass ran")
+        report["stream"] = {
+            "batches": MESH_RANK_BATCHES, "batch_size": BATCH,
+            "all_ok": True,
+            "proofs_per_s_steady": round((len(stamps) - 1) * BATCH
+                                         / (stamps[-1] - stamps[0]), 1),
+            "wall_seconds": round(stamps[-1] - t0, 3),
+            "stages": bv.timings.report(),
+            "mesh_wire_stats": bv.mesh_wire_stats,
+            "launches": launches}
+        tamper = tile(items, TAMPER_BATCH)
+        p, inst = tamper[TAMPER_INDEX]
+        tamper[TAMPER_INDEX] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
+        (res,) = list(BatchVerifier(params, vk, mesh=mesh).verify_stream(
+            [tamper]))
+        if res.ok or res.failed_indices != [TAMPER_INDEX]:
+            raise AssertionError(f"rank {rank}: tampered batch ok={res.ok} "
+                                 f"failed={res.failed_indices}")
+        report["tampered_failed_indices"] = res.failed_indices
+        report["launches"] = {
+            name: launches[name] + sum(k["launches"].get(name, 0)
+                                       for k in report["kinds"].values())
+            for name in launches}
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.shutdown()
+
+
 # name, source, TPU kernel it replaces, the path whose run gives its row
 KERNELS = (
     ("forest_frontier0", "halo2_verifier_tpu_torch/csrc/frontier.cu",
@@ -1678,6 +1954,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, default=32,
                     help="main-path stream batches (>= 4)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # one rank of mesh_ranks_path
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.batches < 4:
         ap.error("--batches must be at least 4")
@@ -1696,6 +1975,11 @@ def main(argv=None):
               f"beside this script ({e}); nothing was run", file=sys.stderr)
         return 3
 
+    if args.mesh_rank is not None:
+        import numpy as np
+
+        mesh_rank_main(torch, np, args.mesh_rank, args.mesh_dir)
+        return 0
     card = Card(torch)
     run(torch, card, torch.device("cuda"), args.batches, BatchVerifier)
     return 0
@@ -1816,12 +2100,27 @@ def run(torch, card, dev, n_batches, make_verifier):
         "launches": cli_res["verify_keccak_gwc"]["launches"]}
     emit(cli_res)
 
+    # the mesh on the one card: a world of one NCCL rank here, then four
+    # gloo ranks sharing the card; their launches stand beside each row
+    mesh_res, mesh_record, mesh_tamper = phase_mesh_path(
+        torch, np, kernels, msm_forest, fixture, make_verifier,
+        forest_inputs, case)
+    emit(mesh_res)
+    emit(mesh_tamper)
+    ranks_res, ranks_launches = phase_mesh_ranks(
+        torch, np, card, case, forest_inputs, msm_forest)
+    emit(ranks_res)
+
     rows, beside = phase_timings(torch, card, kernels, records, curve, fm,
                                  f8, decomp)
     for r in rows:
         r["launches_k9_paths"] = {
             path: rec["launches"].get(r["name"], 0)
             for path, rec in k9_records.items()}
+        r["launches_mesh_paths"] = {
+            "mesh_path": mesh_record["launches"].get(r["name"], 0),
+            "mesh_ranks_path": [rank.get(r["name"], 0)
+                                for rank in ranks_launches]}
     emit(phase_forest_batch(torch, msm_forest, forest_inputs))
     for backend in ("u16", "f8"):
         emit(phase_scan_batch(torch, msm_scan, scan_inputs, backend))

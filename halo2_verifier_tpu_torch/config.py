@@ -16,7 +16,7 @@ class VerifierConfig:
     strategy: str = "accumulator"     # "single" | "accumulator"
     pairing: str = "host"             # "host" (C++) | "device" (ops/pairing)
     serde_format: str = "processed"   # "processed"|"raw_bytes"|"raw_bytes_unchecked"
-    mesh_shape: tuple = ()            # () = one device; a mesh is not ported
+    mesh_shape: tuple = ()            # () = one device; (D,) = D-rank MSM
     batch_size: int = 512             # proofs per stream batch
     localize_failures: bool = True    # bisect failing batches
 
@@ -24,13 +24,18 @@ class VerifierConfig:
         """Build the batch verifier for this configuration on `device`
         (None: the CUDA card, raising if there is none). msm: the
         BatchVerifier's MSM backend ("forest" when None; "host" for CPU
-        tests)."""
-        if self.mesh_shape:
-            raise NotImplementedError("mesh sharding: not yet ported")
+        tests). mesh_shape (D,) builds parallel.mesh.make_mesh(D) on
+        `device`, which needs a live process group of D ranks (D = 1: a
+        world of one)."""
+        from .parallel.mesh import make_mesh
         from .parallel.orchestrator import BatchVerifier
 
+        mesh = None
+        if self.mesh_shape:
+            mesh = make_mesh(self.mesh_shape[0], device=device)
+            device = None
         extra = {} if msm is None else {"msm": msm}
         return BatchVerifier(params, vk, multiopen=self.multiopen,
-                             hash_name=self.hash, device=device,
+                             hash_name=self.hash, device=device, mesh=mesh,
                              strategy=self.strategy, pairing=self.pairing,
                              **extra)

@@ -432,18 +432,6 @@ def frontier0(xs, ys, idx0):
     return frontier0_plain(xs, ys, idx0)
 
 
-def _grid_leaves(f, scatter_idx, leaf_idx, tw):
-    """Scatter the finalized bucket entries into the (tw, NUM_BUCKETS)
-    grid (empty buckets patched to the projective identity), then gather
-    the bit-plane leaves: (NLIMBS, tw * WINDOW_BITS * 128).
-
-    Duplicate scatter indices occur only at the dump slot (the last one,
-    where identity padding lands) and that slot is dropped, so which
-    duplicate a non-deterministic index_put_ keeps does not matter."""
-    grid = _bucket_grid(f, scatter_idx, tw)
-    return _gather(grid, leaf_idx)
-
-
 def _fold_pairs(f):
     """One balanced tree level: add even/odd neighbour columns (one
     point-add launch with iL = 2i, iR = 2i + 1)."""
@@ -469,8 +457,11 @@ def _horner_bits(planes, tw):
 
 def _bucket_grid(f, scatter_idx, tw):
     """Scatter the finalized bucket entries into the (NLIMBS, tw *
-    NUM_BUCKETS) grid, empty buckets patched to the projective identity
-    (duplicates only at the dropped dump slot, see _grid_leaves)."""
+    NUM_BUCKETS) grid, empty buckets patched to the projective identity.
+
+    Duplicate scatter indices occur only at the dump slot (the last one,
+    where identity padding lands) and that slot is dropped, so which
+    duplicate a non-deterministic index_put_ keeps does not matter."""
     nslots = tw * NUM_BUCKETS + 1
     grid = []
     for c in f:
@@ -501,8 +492,15 @@ def _bucket_phase(f, scatter_idx, tw, scan: bool = False):
     H2V_BUCKET=scan)."""
     if scan:
         return _bucket_phase_scan(f, scatter_idx, tw)
-    leaf_idx = torch.from_numpy(_bucket_leaf_idx(tw)).to(scatter_idx.device)
-    leaves = _grid_leaves(f, scatter_idx, leaf_idx.to(I64), tw)
+    return plane_reduce(_bucket_grid(f, scatter_idx, tw), tw)
+
+
+def plane_reduce(grid, tw):
+    """(X, Y, Z) bucket grid, (NLIMBS, tw * NUM_BUCKETS) each -> window
+    totals (3, NLIMBS, tw): gather the bit-plane leaves (NLIMBS,
+    tw * WINDOW_BITS * 128), a balanced tree per plane, the Horner fold."""
+    leaf_idx = torch.from_numpy(_bucket_leaf_idx(tw)).to(grid[0].device)
+    leaves = _gather(grid, leaf_idx.to(I64))
     while leaves[0].shape[1] > tw * WINDOW_BITS:
         leaves = _fold_pairs(leaves)
     return _horner_bits(leaves, tw)
@@ -517,9 +515,19 @@ def dispatch_planned(x_np, y_np, plan, device):
     identity), as the orchestrator assembles them."""
     _check_plan(plan)
     xs, ys = _pad_transpose_points(x_np, y_np, plan["n_pad"])
-    frontiers = [frontier0(_upload(xs.view(np.int32), device),
-                           _upload(ys.view(np.int32), device),
-                           _upload(plan["point_idx0"], device))]
+    fin, scatter_idx = forest_buckets(_upload(xs.view(np.int32), device),
+                                      _upload(ys.view(np.int32), device),
+                                      plan)
+    return _bucket_phase(fin, scatter_idx, plan["tw"])
+
+
+def forest_buckets(xs, ys, plan):
+    """The level-0 frontier from the (NLIMBS, n_pad) int32 canonical
+    affine limbs on the device (plan checked by the caller), then the
+    forest levels; returns the finalized bucket entries (X, Y, Z) and
+    their int64 scatter keys into the (tw * NUM_BUCKETS + 1)-slot grid."""
+    device = xs.device
+    frontiers = [frontier0(xs, ys, _upload(plan["point_idx0"], device))]
     for iL, iR in plan["levels"]:
         f = frontiers[-1]
         frontiers.append(curve.masked_add(
@@ -533,8 +541,7 @@ def dispatch_planned(x_np, y_np, plan, device):
     fin = tuple(
         torch.cat([g[c] for g in gathered], dim=1) for c in range(3)
     )
-    return _bucket_phase(fin, _upload(_plan_scatter_idx(plan), device, I64),
-                         plan["tw"])
+    return fin, _upload(_plan_scatter_idx(plan), device, I64)
 
 
 def msm_grouped(scalars_np, x_np, y_np, sizes, device):

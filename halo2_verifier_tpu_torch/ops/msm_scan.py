@@ -314,6 +314,15 @@ def window_totals_presorted_impl(points_x, points_y, idx_sorted,
     return _bucket_totals(summed, bucket_pos, total_windows, ops)
 
 
+def check_plan(n_points: int, idx_sorted, keys_sorted, total_windows: int):
+    """Every sorted entry must name a point and a bucket of the grid: the
+    device gathers by these indices without a bounds check."""
+    if idx_sorted.size and (
+            int(idx_sorted.min()) < 0 or int(idx_sorted.max()) >= n_points
+            or int(keys_sorted.max()) >= total_windows * NUM_BUCKETS):
+        raise ValueError("scan plan index out of range")
+
+
 def msm_window_totals_grouped(points_x_np, points_y_np, idx_sorted,
                               keys_sorted, groups: int, levels: int,
                               device, backend: str = DEFAULT_BACKEND):
@@ -321,10 +330,7 @@ def msm_window_totals_grouped(points_x_np, points_y_np, idx_sorted,
     (3, nlimbs, g*W) tensor on `device` WITHOUT synchronizing. Inputs are
     host numpy (uploaded here, once), as host_plan returns them."""
     tw = groups * NUM_WINDOWS
-    if idx_sorted.size and (int(idx_sorted.min()) < 0
-                            or int(idx_sorted.max()) >= points_x_np.shape[0]
-                            or int(keys_sorted.max()) >= tw * NUM_BUCKETS):
-        raise ValueError("scan plan index out of range")
+    check_plan(points_x_np.shape[0], idx_sorted, keys_sorted, tw)
     return window_totals_presorted_impl(
         _to_device(points_x_np, device), _to_device(points_y_np, device),
         _to_device(idx_sorted, device, I64), _to_device(keys_sorted, device),

@@ -1,4 +1,4 @@
-"""Batch-verification orchestrator on one device (port of
+"""Batch-verification orchestrator on one device or a mesh (port of
 halo2_verifier_tpu/parallel/orchestrator.py: BatchVerifier, BatchResult).
 
 Pipeline:
@@ -18,10 +18,19 @@ All device work runs on the current stream of one device. Results come
 back through a non-blocking copy into pinned host memory and a recorded
 CUDA event: the finish workers wait on that event, never on the device,
 and only read their own buffer.
+
+With a mesh (parallel/mesh.py) every rank runs this same program on its
+own device (SPMD replay): the same proofs, the same isolation weights
+(from a seed rank 0 broadcasts), and its shard of the MSM, whose sharded
+kind falls through windows -> point-sharded forest -> presorted scan by
+the mesh size, as the reference's does. Every collective is issued from
+the dispatching thread, in stream order on every rank: the stream keeps
+one finish worker, and a failing batch is localized on that thread.
 """
 
 from __future__ import annotations
 
+import random
 import secrets
 import threading
 from collections import deque
@@ -42,6 +51,7 @@ from ..protocol.verifier import verify_proof
 from ..transcript import TRANSCRIPT_READERS
 from ..utils.device import resolve_device
 from ..utils.metrics import StageTimings
+from . import mesh as pmesh
 
 
 def _dedup_entries(entries):
@@ -80,7 +90,16 @@ class BatchVerifier:
     pairing: "host" (the native pairing) or "device" (ops/pairing.py on
     this verifier's device); its stage in `timings` is "<pairing>_pairing".
     strategy: "accumulator" (one pairing per batch) or "single" (one per
-    proof)."""
+    proof).
+    mesh: a parallel.mesh.Mesh; the verifier runs on its device, and its
+    MSMs are sharded over its ranks (device, if given, must name the same
+    device). The sqrt pre-pass stays off with a mesh unless decomp=True.
+    mesh_shard: None (windows when the mesh size divides NUM_WINDOWS,
+    else the point-sharded forest when it divides the total windows, else
+    the presorted scan) or "windows", "forest", "scan" to force a kind
+    where it applies (the reference's H2V_MESH_SHARD).
+    mesh_upload: "shard" or "replicate", the windows kind's point-table
+    upload (the reference's H2V_MESH_UPLOAD)."""
 
     # padded sizes quantize to this granularity
     PAD_GRAN = 256
@@ -88,19 +107,34 @@ class BatchVerifier:
     def __init__(self, params, vk, multiopen="shplonk", hash_name="blake2b",
                  device=None, rng=None, strategy="accumulator",
                  pairing="host", msm="forest", decomp=None, mesh=None,
-                 limb_backend=msm_scan.DEFAULT_BACKEND):
+                 limb_backend=msm_scan.DEFAULT_BACKEND, mesh_shard=None,
+                 mesh_upload="shard"):
         if strategy not in ("accumulator", "single"):
             raise ValueError(f"unknown strategy {strategy!r} "
                              "(expected 'accumulator' or 'single')")
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding: not yet ported")
+        if mesh is not None and not isinstance(mesh, pmesh.Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh_shard not in (None, "windows", "forest", "scan"):
+            raise ValueError(f"unknown mesh_shard {mesh_shard!r} (expected "
+                             "None, 'windows', 'forest' or 'scan')")
+        if mesh_upload not in pmesh.UPLOADS:
+            raise ValueError(f"unknown mesh_upload {mesh_upload!r} "
+                             f"(expected one of {pmesh.UPLOADS})")
         if msm not in ("forest", "scan", "host"):
             raise ValueError(f"unknown msm {msm!r} (expected 'forest', "
                              "'scan' or 'host')")
         if limb_backend not in ("u16", "f8"):
             raise ValueError(f"unknown limb_backend {limb_backend!r} "
                              "(expected 'u16' or 'f8')")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and not pmesh.same_device(
+                    resolve_device(device), mesh.device):
+                raise ValueError(f"device {device} conflicts with the "
+                                 f"mesh's device {mesh.device}")
+            self.device = mesh.device
         if msm == "host" and self.device.type == "cuda":
             raise ValueError("msm='host' runs the MSM on the CPU; it is for "
                              "CPU orchestration tests, not a CUDA device")
@@ -113,9 +147,26 @@ class BatchVerifier:
         self.strategy = strategy
         self.msm = msm
         self.limb_backend = limb_backend
-        self.decomp = (self.device.type == "cuda") if decomp is None \
-            else bool(decomp)
-        self._rng = rng or (lambda: 1 + secrets.randbelow(R - 1))
+        self.mesh = mesh
+        self.mesh_shard = mesh_shard
+        self.mesh_upload = mesh_upload
+        self.mesh_wire_stats = {}
+        # the mesh path keeps host decompression, as the reference's does
+        self.decomp = (self.device.type == "cuda" and mesh is None) \
+            if decomp is None else bool(decomp)
+        if rng is not None:
+            self._rng = rng
+        elif mesh is not None and mesh.spans_processes:
+            # SPMD ranks must fold IDENTICAL isolation weights, or the
+            # sharded MSM mixes two linear combinations and valid batches
+            # are rejected: a seed of fresh entropy from rank 0 drives one
+            # deterministic generator on every rank
+            seed = int(pmesh.broadcast(mesh, torch.tensor(
+                [secrets.randbits(63)], dtype=torch.int64))[0])
+            prng = random.Random(seed)
+            self._rng = lambda: 1 + prng.randrange(R - 1)
+        else:
+            self._rng = lambda: 1 + secrets.randbelow(R - 1)
         # localization (replay/_bisect share CompiledReplay programs) is
         # serialized across the stream pipeline's finish workers
         self._finish_lock = threading.Lock()
@@ -274,6 +325,8 @@ class BatchVerifier:
                            if pairs else None)
                 off += size
             return ("host", out)
+        if self.mesh is not None:
+            return self._dispatch_mesh(s_np, x_np, y_np, sizes)
         if self.msm == "scan":
             idx_sorted, keys_sorted, levels = msm_scan.host_plan(s_np, sizes)
             # device point-add lanes: the segmented scan's levels over all
@@ -293,6 +346,51 @@ class BatchVerifier:
         )
         arr = msm_forest.dispatch_planned(x_np, y_np, plan, self.device)
         return ("grouped", self._prefetch_d2h(arr))
+
+    def _dispatch_mesh(self, s_np, x_np, y_np, sizes):
+        """The sharded kinds, by the reference's fall-through: windows when
+        the mesh size D divides NUM_WINDOWS, else the point-sharded forest
+        when D divides the total windows, else the presorted scan with
+        its entries padded to a multiple of D; mesh_shard forces a kind
+        where it applies, msm="scan" goes to the scan. Every rank returns
+        the (D, 3, nlimbs, .) totals of all ranks; the counters count this
+        rank's work."""
+        D = self.mesh.size
+        tw = len(sizes) * NUM_WINDOWS
+        pref = self.mesh_shard
+        forest = self.msm == "forest"
+        if forest and pref in (None, "windows") and NUM_WINDOWS % D == 0:
+            self.mesh_wire_stats = {}
+            arr = pmesh.sharded_forest_by_windows(
+                self.mesh, x_np, y_np, s_np, sizes,
+                stats=self.mesh_wire_stats, upload=self.mesh_upload)
+            self.point_adds_dispatched += self.mesh_wire_stats["point_adds"]
+            return ("sharded_windows", self._prefetch_d2h(arr))
+        if forest and pref in (None, "forest") and tw % D == 0:
+            self.mesh_wire_stats = {}
+            arr = pmesh.sharded_forest_window_totals(
+                self.mesh, x_np, y_np, s_np, sizes,
+                stats=self.mesh_wire_stats)
+            self.point_adds_dispatched += self.mesh_wire_stats["point_adds"]
+            return ("sharded_forest", self._prefetch_d2h(arr))
+        idx_sorted, keys_sorted, levels = msm_scan.host_plan(s_np, sizes)
+        rem = (-idx_sorted.shape[0]) % D
+        if rem:
+            # identity-point entries in the last segment: the complete add
+            # absorbs identities, the repeated key keeps the order sorted
+            zero = np.zeros((1, x_np.shape[1]), x_np.dtype)
+            x_np = np.concatenate([x_np, zero])
+            y_np = np.concatenate([y_np, zero])
+            idx_sorted = np.concatenate([
+                idx_sorted, np.full(rem, x_np.shape[0] - 1, idx_sorted.dtype)])
+            keys_sorted = np.concatenate([
+                keys_sorted, np.full(rem, keys_sorted[-1], keys_sorted.dtype)])
+        self.point_adds_dispatched += msm_scan.scan_lanes(
+            idx_sorted.shape[0] // D, tw, levels)
+        arr = pmesh.sharded_window_totals_presorted(
+            self.mesh, x_np, y_np, idx_sorted, keys_sorted,
+            total_windows=tw, levels=levels, backend=self.limb_backend)
+        return ("sharded_grouped", self._prefetch_d2h(arr))
 
     def _prefetch_d2h(self, arr):
         """Enqueue the device->host copy of a result tensor right at
@@ -439,7 +537,13 @@ class BatchVerifier:
         kind, arr = handle
         if kind == "host":
             return arr
-        return combine_window_totals_grouped(self._fetch(arr), 2)
+        combine = {
+            "grouped": combine_window_totals_grouped,
+            "sharded_windows": pmesh.combine_sharded_windows,
+            "sharded_forest": pmesh.combine_sharded_forest,
+            "sharded_grouped": pmesh.combine_sharded_grouped,
+        }[kind]
+        return combine(self._fetch(arr), 2)
 
     def _pairing_ok(self, left, right) -> bool:
         with self.timings.stage(f"{self.pairing}_pairing"):
@@ -487,13 +591,31 @@ class BatchVerifier:
             return
         # finish (wait + fetch + pairing) runs on worker threads so it
         # overlaps the NEXT batch's replay; two workers keep batch k's
-        # pairing from serializing behind batch k+1's device wait
-        depth = 2
+        # pairing from serializing behind batch k+1's device wait. A mesh
+        # of several ranks keeps one, as the reference does. With a
+        # process group a failing batch is localized here, on the
+        # dispatching thread: its bisection issues collectives, which
+        # every rank must issue in one order, and never beside another
+        # thread's
+        spmd = self.mesh is not None and self.mesh.group is not None
+        depth = 1 if self.mesh is not None and self.mesh.size > 1 else 2
         executor = ThreadPoolExecutor(max_workers=depth)
         # decomp fetch+pack gets its own worker
         decomp_executor = ThreadPoolExecutor(max_workers=1)
-        pending = deque()  # FIFO of Future[BatchResult]
+        pending = deque()  # FIFO of (Future[BatchResult], batch, duals)
         stream_pads = (pad_to, pad_to) if pad_to is not None else None
+
+        def submit(batch, duals, handle):
+            pending.append((executor.submit(
+                self._finish_pipelined, batch, duals, max(stream_pads),
+                handle, localize and not spmd), batch, duals))
+
+        def result():
+            fut, batch, duals = pending.popleft()
+            res = fut.result()
+            if spmd and localize and not res.ok:
+                res = self._localize(batch, duals, max(stream_pads))
+            return res
 
         def batches_with_decomp():
             """One-batch lookahead for the device sqrt pre-pass."""
@@ -516,24 +638,21 @@ class BatchVerifier:
                                                       ext_y_fut)
                 except VerifyFailure:
                     while pending:
-                        yield pending.popleft().result()
+                        yield result()
                     yield self._verify_individually(batch)
                     continue
                 if fast is not None:
                     handle, pads = fast
                     stream_pads = stream_pads or pads
-                    pending.append(executor.submit(
-                        self._finish_pipelined, batch, None,
-                        max(stream_pads), handle, localize,
-                    ))
+                    submit(batch, None, handle)
                     while len(pending) > depth:
-                        yield pending.popleft().result()
+                        yield result()
                     continue
                 try:
                     duals = self.replay(batch)
                 except Exception:
                     while pending:
-                        yield pending.popleft().result()
+                        yield result()
                     yield self._verify_individually(batch)
                     continue
                 weights = [self._rng() for _ in duals]
@@ -553,14 +672,11 @@ class BatchVerifier:
                 with self.timings.stage("device_msm_dispatch"):
                     handle = self._msm_dispatch_pair(left, right,
                                                      stream_pads)
-                pending.append(executor.submit(
-                    self._finish_pipelined, batch, duals,
-                    max(stream_pads), handle, localize,
-                ))
+                submit(batch, duals, handle)
                 while len(pending) > depth:
-                    yield pending.popleft().result()
+                    yield result()
             while pending:
-                yield pending.popleft().result()
+                yield result()
         finally:
             executor.shutdown(wait=True)
             decomp_executor.shutdown(wait=True)
@@ -573,14 +689,17 @@ class BatchVerifier:
             return BatchResult(True, n)
         if not localize:
             return BatchResult(False, n)
-        # the rare localization branch is serialized: replay/_bisect share
-        # the per-vk CompiledReplay programs
+        return self._localize(batch, duals, pad)
+
+    def _localize(self, batch, duals, pad):
+        """Bisect a failed stream batch. Serialized: replay/_bisect share
+        the per-vk CompiledReplay programs."""
         with self._finish_lock:
             if duals is None:
                 duals = self.replay(batch)
             return BatchResult(
-                False, n, self._bisect(duals, list(range(n)), pad)
-            )
+                False, len(batch), self._bisect(duals, list(range(len(batch))),
+                                                pad))
 
     def _bisect(self, duals, indices, pad_to):
         """Localize failing proofs by bisection over already-replayed MSMs

@@ -2,7 +2,7 @@
 config.py): the export list equals the JAX package's, every name from the
 port's own modules; VerifierConfig has the reference's fields and
 defaults and builds the port's BatchVerifier on the device it is given;
-a mesh raises until it is ported."""
+a mesh of D devices needs a live process group of D ranks."""
 
 import dataclasses
 
@@ -51,6 +51,9 @@ def test_make_verifier_builds_the_configured_verifier(strategy, pairing):
 
 
 def test_mesh_shape_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh of two devices needs a live process group of two ranks
+    (tests/test_torch_dist.py forms one); without it the config raises
+    and says how to launch the ranks."""
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         port.VerifierConfig(mesh_shape=(2,)).make_verifier(
             _params(), None, device="cpu")

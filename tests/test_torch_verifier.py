@@ -12,6 +12,7 @@ import torch
 
 from halo2_verifier_tpu.ops.constants import R
 from halo2_verifier_tpu_torch import weights
+from halo2_verifier_tpu_torch.parallel.mesh import make_mesh
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
 
 
@@ -260,9 +261,10 @@ def test_unknown_msm_and_backend_names_raise(two_circuits):
 
 def test_device_policy(two_circuits, monkeypatch):
     """Entry points default to CUDA and raise when it is absent; CPU runs
-    only when asked for; unported paths raise. The device pairing is
-    bound to the verifier's device: CUDA by default, so it raises with
-    the verifier when CUDA is absent."""
+    only when asked for; a mesh is a parallel.mesh.Mesh, whose device the
+    verifier takes. The device pairing is bound to the verifier's device:
+    CUDA by default, so it raises with the verifier when CUDA is
+    absent."""
     _jparams, params, vm_proofs, _ = two_circuits
     vk = vm_proofs[0][3]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -272,8 +274,13 @@ def test_device_policy(two_circuits, monkeypatch):
         BatchVerifier(params, vk, device="cuda")
     bv = BatchVerifier(params, vk, device="cpu")
     assert bv.device.type == "cpu" and not bv.decomp
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         BatchVerifier(params, vk, device="cpu", mesh=object())
+    mesh = make_mesh(1, device="cpu")
+    bv = BatchVerifier(params, vk, mesh=mesh)
+    assert bv.device == torch.device("cpu") and not bv.decomp
+    with pytest.raises(RuntimeError):
+        BatchVerifier(params, vk, device="cuda", mesh=mesh)
     bv = BatchVerifier(params, vk, device="cpu", pairing="device")
     assert bv._pairing_fn.keywords == {"device": torch.device("cpu")}
     with pytest.raises(RuntimeError):
