@@ -59,7 +59,16 @@ Phases, one output line each (JSON unless noted):
    launch: the single strategy's
    MSMs run on the host); T2 through its entry, ops/pairing.py
    _linear_combine, on the three Fq12 maps at 16,384 lanes (the pairing
-   runs its maps inside the fused multiply);
+   runs its maps inside the fused multiply); the limb-minor layer
+   (minor_path: ops/field_minor.py and ops/curve_minor.py on (..., 16)
+   limbs, which no verifier path runs): mont_mul, add and sub on Fq and
+   Fr at (2, 266,240, 16), the curve add at 266,240 lanes, the doubling
+   at 524,288, inv_mont and to_affine_batch at 16,640 and pow_fixed with
+   (p+1)/4 at 15,360, each call's launches held to its kernels (one K1
+   per mont_mul, one K2 per add, one K3 per double), each result to its
+   plain version, to the limbs-major kernels on the transposed inputs
+   and, on 64 lanes, to the host oracle; each function timed whole and
+   its transposes apart from its kernels (launches_minor_path);
    bench.py's two k=9 configurations at its sizes (7 batches of 256),
    their keys derived by the port's prover (prover/keygen.py) from the
    tracked k=9 SRS and checked against the committed packs' vk hashes:
@@ -132,6 +141,11 @@ SQRT_WIDTHS = (15360, 16384)        # 15 points x 1,024 proofs; padded
 FOREST_SIZES = (1024, 15616)       # one main-path batch's two MSM groups
 SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
 POINT_DOUBLE_WIDTH = 524288
+MINOR_FIELD_SHAPE = (2, 266240)     # the u16 scan's K1 width, 532,480 lanes
+MINOR_ADD_WIDTH = 266240            # the limb-minor point add's lanes
+MINOR_INV_WIDTH = 16640             # one batch's MSM entries
+MINOR_POW_WIDTH = 15360             # the sqrt pre-pass's lanes
+MINOR_SAMPLE = 64                   # lanes per function held to the host
 MONT_MUL8_WIDTHS = (16384, SCAN_LANES)
 SCAN_BATCHES = {"u16": 8, "f8": 4}
 K9_BATCH = 256                       # bench.py run_extras' defaults
@@ -1059,6 +1073,232 @@ def phase_linmap_path(torch, np, fm, tp, kernels, ints_to_limbs, dev):
     return ({"phase": "linmap_path", "entry": "ops/pairing.py "
              "_linear_combine", "lanes": width, "maps": ["MA", "MB", "MC"],
              "max_abs_err": err, "launches": record["launches"]}, record)
+
+
+def timed_once(torch, fn):
+    """(fn(), its CUDA-event milliseconds), one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(stop)
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def phase_minor_path(torch, np, hc, fm, fmin, cmin, curve, kernels,
+                     ints_to_limbs, limbs_to_ints, dev):
+    """The limb-minor layer (ops/field_minor.py, ops/curve_minor.py) on
+    (..., 16) limbs at main-path widths: mont_mul, add and sub on Fq and
+    Fr at MINOR_FIELD_SHAPE, curve_minor.add at MINOR_ADD_WIDTH (the point
+    add's cases: P+P, P+(-P), identities), double at POINT_DOUBLE_WIDTH
+    (the add's outputs: general Z), inv_mont and to_affine_batch (the
+    add's outputs) at MINOR_INV_WIDTH, pow_fixed with (P+1)/4 at
+    MINOR_POW_WIDTH. Counts are set to 0 just before and read just after;
+    each call's own launches are held to one K1 per mont_mul, one K2 per
+    add, one K3 per double, T3 per inv_mont, T3 and two K1 per
+    to_affine_batch, K1 per product of pow_fixed, none for add and sub.
+    Then each result is held against its plain version on the card
+    (plain=True; add and sub are plain torch themselves), against the
+    limbs-major route on the transposed inputs (the kernels, or
+    ops/field.py's bodies for add and sub; bit-equal), and on
+    MINOR_SAMPLE lanes against the host oracle; each function is timed
+    whole, and its transposes apart from its kernels. Returns the line
+    and the path's record."""
+    from halo2_verifier_tpu_torch.ops.constants import FOLD_EDGE, P
+
+    rng = np.random.default_rng(17)
+
+    def minor(limbs, shape):
+        return torch.from_numpy(limbs.astype(np.int32)).to(dev).reshape(
+            *shape, 16)
+
+    field_in = {}
+    n_field = MINOR_FIELD_SHAPE[0] * MINOR_FIELD_SHAPE[1]
+    for spec in (fm.FQ, fm.FR):
+        a = random_field(np, rng, spec.modulus, n_field)
+        b = random_field(np, rng, spec.modulus, n_field)
+        edge = ints_to_limbs([0, 1, spec.modulus - 1, spec.modulus - 2])
+        a[:4], b[4:8] = edge, edge
+        if spec is fm.FQ:
+            a[-3:] = ints_to_limbs([x for x, _ in FOLD_EDGE])
+            b[-3:] = ints_to_limbs([y for _, y in FOLD_EDGE])
+        field_in[spec] = (minor(a, MINOR_FIELD_SHAPE),
+                          minor(b, MINOR_FIELD_SHAPE))
+    f, iL, iR, _mask, pool = add_case(torch, np, hc, fm, curve,
+                                      ints_to_limbs, dev, MINOR_ADD_WIDTH)
+    p_in = tuple(c[:, iL.long()].t().contiguous() for c in f)
+    q_in = tuple(c[:, iR.long()].t().contiguous() for c in f)
+    inv_in = minor(random_field(np, rng, P, MINOR_INV_WIDTH),
+                   (MINOR_INV_WIDTH,))
+    inv_in[0] = 0
+    pow_in = minor(random_field(np, rng, P, MINOR_POW_WIDTH),
+                   (MINOR_POW_WIDTH,))
+    sqrt_exp = (P + 1) // 4
+    pow_bits = [(sqrt_exp >> i) & 1 for i in range(sqrt_exp.bit_length())]
+
+    # name -> (card function, plain version or None, limbs-major route on
+    # the transposed inputs, arguments, the call's expected launches)
+    cases = {}
+    for spec, tag in ((fm.FQ, "fq"), (fm.FR, "fr")):
+        k1 = {"mont_mul": 1}
+        cases[f"mont_mul_{tag}"] = (
+            lambda a, b, s=spec: fmin.mont_mul(a, b, s),
+            lambda a, b, s=spec: fmin.mont_mul(a, b, s, plain=True),
+            lambda x, y, s=spec: kernels.mont_mul(x, y, s.kernel_id),
+            field_in[spec], k1)
+        for op in ("add", "sub"):
+            cases[f"{op}_{tag}"] = (
+                lambda a, b, s=spec, op=op: getattr(fmin, op)(a, b, s),
+                None, lambda x, y, s=spec, op=op: getattr(fm, op)(x, y, s),
+                field_in[spec], {})
+    cases["curve_add"] = (
+        lambda *cs: cmin.add(cs[:3], cs[3:]),
+        lambda *cs: cmin.add(cs[:3], cs[3:], plain=True),
+        lambda *cs: kernels.point_add(cs[:3], cs[3:]),
+        p_in + q_in, {"point_add": 1})
+    outs, by_call = {}, {}
+
+    def drive(name):
+        fn, _plain, _major, args, expect = cases[name]
+        before = dict(kernels.LAUNCHES)
+        outs[name] = as_tuple(fn(*args))
+        by_call[name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                         if v != before[k]}
+        if by_call[name] != expect:
+            raise AssertionError(f"minor_path: {name} launched "
+                                 f"{by_call[name]}, expected {expect}")
+
+    def affine_major(X, Y, Z):
+        zinv = kernels.fq_inv(Z, fm.FQ.kernel_id)
+        inf = (Z == 0).all(dim=0)
+        return tuple(torch.where(inf, 0, kernels.mont_mul(
+            c, zinv, fm.FQ.kernel_id)) for c in (X, Y))
+
+    kernels.reset_launches()
+    for name in list(cases):
+        drive(name)
+    added = outs["curve_add"]  # general Z: the doubling's and the map's
+    cases["curve_double"] = (
+        lambda *cs: cmin.double(cs),
+        lambda *cs: cmin.double(cs, plain=True),
+        lambda *cs: kernels.point_double(cs),
+        tuple(torch.cat([c, c])[:POINT_DOUBLE_WIDTH] for c in added),
+        {"point_double": 1})
+    cases["to_affine_batch"] = (
+        lambda *cs: cmin.to_affine_batch(cs),
+        lambda *cs: cmin.to_affine_batch(cs, plain=True), affine_major,
+        tuple(c[:MINOR_INV_WIDTH] for c in added),
+        {"fq_inv": 1, "mont_mul": 2})
+    cases["inv_mont"] = (
+        lambda a: fmin.inv_mont(a, fm.FQ),
+        lambda a: fmin.inv_mont(a, fm.FQ, plain=True),
+        lambda x: kernels.fq_inv(x, fm.FQ.kernel_id), (inv_in,),
+        {"fq_inv": 1})
+    cases["pow_fixed"] = (
+        lambda a: fmin.pow_fixed(a, sqrt_exp, fm.FQ),
+        lambda a: fmin.pow_fixed(a, sqrt_exp, fm.FQ, plain=True),
+        lambda x: fm.pow_bits_body(
+            x, pow_bits, fm.FQ,
+            mul=lambda u, v: kernels.mont_mul(u, v, fm.FQ.kernel_id)),
+        (pow_in,), {"mont_mul": sum(pow_bits) + len(pow_bits) - 1})
+    for name in ("curve_double", "to_affine_batch", "inv_mont", "pow_fixed"):
+        drive(name)
+    torch.cuda.synchronize()
+    record = {"launches": dict(kernels.LAUNCHES)}
+
+    # the host oracle on MINOR_SAMPLE lanes of each output
+    lanes = {}
+    for name, (_fn, _p, _m, args, _e) in cases.items():
+        n = args[0].numel() // 16
+        pick = rng.choice(n - 8, MINOR_SAMPLE - 8, replace=False) + 8
+        lanes[name] = np.concatenate([np.arange(8), np.sort(pick)])
+
+    def ints(t, name):
+        return limbs_to_ints(t.reshape(-1, 16)[
+            torch.from_numpy(lanes[name]).to(t.device)].cpu().numpy())
+
+    rinv = pow(fm.FQ.mont_r, -1, P)
+    n_pool = len(pool)
+    iL_h, iR_h = iL.tolist(), iR.tolist()
+
+    def host_added(i):
+        return hc.g1_add(pool[iL_h[i] % n_pool], pool[iR_h[i] % n_pool])
+
+    def affine(name, pt):
+        """The sampled lanes of projective points as host points."""
+        major = tuple(c.reshape(-1, 16)[torch.from_numpy(lanes[name]).to(
+            c.device)].t().contiguous() for c in pt)
+        return curve.to_affine_host(major)
+
+    host_ok = {}
+    for spec, tag in ((fm.FQ, "fq"), (fm.FR, "fr")):
+        N = spec.modulus
+        srinv = pow(spec.mont_r, -1, N)
+        for op, want in (("mont_mul", lambda x, y: x * y * srinv % N),
+                         ("add", lambda x, y: (x + y) % N),
+                         ("sub", lambda x, y: (x - y) % N)):
+            name = f"{op}_{tag}"
+            a, b = (ints(t, name) for t in cases[name][3])
+            host_ok[name] = ints(outs[name][0], name) == [
+                want(x, y) for x, y in zip(a, b)]
+    host_ok["curve_add"] = affine("curve_add", outs["curve_add"]) == [
+        host_added(int(i)) for i in lanes["curve_add"]]
+    host_ok["curve_double"] = affine(
+        "curve_double", outs["curve_double"]) == [
+        hc.g1_double(host_added(int(i) % MINOR_ADD_WIDTH))
+        for i in lanes["curve_double"]]
+    xs, ys = (ints(c, "to_affine_batch") for c in outs["to_affine_batch"])
+    host_ok["to_affine_batch"] = [
+        None if (x, y) == (0, 0) else (x * rinv % P, y * rinv % P)
+        for x, y in zip(xs, ys)] == [host_added(int(i))
+                                     for i in lanes["to_affine_batch"]]
+    a, got = ints(inv_in, "inv_mont"), ints(outs["inv_mont"][0], "inv_mont")
+    host_ok["inv_mont"] = got == [
+        0 if x == 0 else pow(x * rinv, -1, P) * fm.FQ.mont_r % P for x in a]
+    a, got = ints(pow_in, "pow_fixed"), ints(outs["pow_fixed"][0],
+                                             "pow_fixed")
+    host_ok["pow_fixed"] = got == [
+        pow(x * rinv, sqrt_exp, P) * fm.FQ.mont_r % P for x in a]
+
+    funcs, worst = {}, 0
+    for name, (fn, plain, major, args, _e) in cases.items():
+        shape, xs = fmin.to_major(*args)
+        major_out = as_tuple(major(*xs))
+        equal_major = all(torch.equal(fmin.to_minor(c, shape), o)
+                          for c, o in zip(major_out, outs[name]))
+        row = {"shape": list(args[0].shape), "lanes": args[0].numel() // 16,
+               "launches": by_call[name], "equal_limbs_major": equal_major,
+               "host_sample_equal": host_ok[name]}
+        if plain is not None:
+            want, row["plain_ms"] = timed_once(torch, lambda: plain(*args))
+            row["max_abs_err"] = max_abs_err(torch, outs[name],
+                                             as_tuple(want))
+            worst = max(worst, row["max_abs_err"])
+        reps = 3 if name in ("inv_mont", "to_affine_batch",
+                             "pow_fixed") else 10
+        row["ms"] = time_ms(torch, lambda: fn(*args), reps)
+        if by_call[name]:  # the adapter's transposes around the kernels
+            row["to_major_ms"] = time_ms(torch,
+                                         lambda: fmin.to_major(*args), reps)
+            row["kernel_ms"] = time_ms(torch, lambda: major(*xs), reps)
+            row["to_minor_ms"] = time_ms(torch, lambda: [
+                fmin.to_minor(c, shape) for c in major_out], reps)
+        funcs[name] = {k: round(v, 4) if isinstance(v, float) else v
+                       for k, v in row.items()}
+        if not (equal_major and host_ok[name]):
+            raise AssertionError(f"minor_path: {name} differs from the "
+                                 "limbs-major route or the host oracle")
+    return ({"phase": "minor_path",
+             "entry": "ops/field_minor.py, ops/curve_minor.py",
+             "tolerance": 0, "max_abs_err": worst,
+             "host_sample_lanes": MINOR_SAMPLE,
+             "launches": {k: v for k, v in record["launches"].items() if v},
+             "functions": funcs}, record)
 
 
 def tower_operands(np, rng, modulus, ints_to_limbs, width):
@@ -1992,9 +2232,10 @@ def run(torch, card, dev, n_batches, make_verifier):
 
     from halo2_verifier_tpu_torch import weights
     from halo2_verifier_tpu_torch.ops import (
-        curve, decomp, field as fm, field8 as f8, hostcurve as hc,
-        hostpairing as hp, kernels, msm, msm_forest, msm_scan, pairing)
-    from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
+        curve, curve_minor, decomp, field as fm, field8 as f8, field_minor,
+        hostcurve as hc, hostpairing as hp, kernels, msm, msm_forest,
+        msm_scan, pairing)
+    from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
 
     def emit(res):
         out({**res, **tag})
@@ -2071,6 +2312,10 @@ def run(torch, card, dev, n_batches, make_verifier):
     linmap_res, records["linmap_path"] = phase_linmap_path(
         torch, np, fm, pairing, kernels, ints_to_limbs, dev)
     emit(linmap_res)
+    minor_res, minor_record = phase_minor_path(
+        torch, np, hc, fm, field_minor, curve_minor, curve, kernels,
+        ints_to_limbs, limbs_to_ints, dev)
+    emit(minor_res)
 
     # bench.py's k=9 configurations and the verify command; their launch
     # counts stand beside each kernel's row, whose timing stays on the
@@ -2121,6 +2366,7 @@ def run(torch, card, dev, n_batches, make_verifier):
             "mesh_path": mesh_record["launches"].get(r["name"], 0),
             "mesh_ranks_path": [rank.get(r["name"], 0)
                                 for rank in ranks_launches]}
+        r["launches_minor_path"] = minor_record["launches"].get(r["name"], 0)
     emit(phase_forest_batch(torch, msm_forest, forest_inputs))
     for backend in ("u16", "f8"):
         emit(phase_scan_batch(torch, msm_scan, scan_inputs, backend))

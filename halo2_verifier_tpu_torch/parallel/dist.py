@@ -129,9 +129,23 @@ def init_distributed(coordinator: str | None = None,
 
 
 def shutdown() -> None:
+    """Leave the process group: a barrier, so that no rank tears down its
+    connections, or leaves rank 0's store, while a peer is still in a
+    collective (bounded by the group's timeout: it raises after it), then
+    destroy_process_group. The package keeps no strong reference to the
+    group (mesh.Mesh holds it weakly), so the group is destroyed here and
+    its backend's worker threads are joined while the interpreter still
+    runs; a gloo worker left finishing a collective at interpreter exit
+    aborts the process. Idempotent; a no-op without a group."""
     global _rank_device
     if is_multiprocess():
-        dist.destroy_process_group()
+        try:
+            if dist.get_backend() == "nccl" and _rank_device is not None:
+                dist.barrier(device_ids=[_rank_device.index])
+            else:
+                dist.barrier()
+        finally:
+            dist.destroy_process_group()
     _rank_device = None
 
 

@@ -43,6 +43,7 @@ reference's per-chip totals without it.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,18 +68,36 @@ BUCKET_ADDS_PER_WINDOW = 127 * 8 + 14
 @dataclass(frozen=True)
 class Mesh:
     """A 1-D mesh: `size` ranks of one process group, this process being
-    `rank` and driving `device`. group None: a world of one, no
-    collective."""
+    `rank` and driving `device`. No group_ref: a world of one, no
+    collective.
+
+    The mesh refers to its group weakly, so that dist.shutdown() destroys
+    the group, and with it joins the backend's worker threads, however
+    many meshes and verifiers are still alive: a gloo worker still
+    releasing a finished collective's tensors when the interpreter
+    finalizes aborts the process (std::terminate at exit)."""
 
     size: int
     rank: int
     device: torch.device
     backend: str | None = None
-    group: object = None
+    group_ref: weakref.ref | None = None
+
+    @property
+    def group(self):
+        """The process group, None for a world of one; raises once the
+        group has been shut down."""
+        if self.group_ref is None:
+            return None
+        group = self.group_ref()
+        if group is None:
+            raise RuntimeError("the mesh's process group has been shut "
+                               "down (parallel.dist.shutdown)")
+        return group
 
     @property
     def spans_processes(self) -> bool:
-        return self.group is not None and self.size > 1
+        return self.group_ref is not None and self.size > 1
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -113,7 +132,7 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
     elif device is not None and not same_device(resolve_device(device), dev):
         raise ValueError(f"this rank drives {dev}, not {device}")
     return Mesh(world, dist.get_rank(), dev, dist.get_backend(),
-                dist.group.WORLD)
+                weakref.ref(dist.group.WORLD))
 
 
 # --------------------------------------------------------- collectives

@@ -22,6 +22,7 @@ import hashlib
 import os
 
 import numpy as np
+import torch
 
 from .protocol.kzg import ParamsKZG
 from .protocol.vk import PROCESSED, VerifyingKey
@@ -110,3 +111,17 @@ def limbs8_to_limbs16(a):
     a = np.asarray(a).astype(np.int64)
     pairs = a.reshape(*a.shape[:-2], a.shape[-2] // 2, 2, a.shape[-1])
     return (pairs[..., 0, :] | (pairs[..., 1, :] << 8)).astype(np.int32)
+
+
+def limbs_minor_from_reference(a, device):
+    """The JAX package's limb-minor elements, a (..., 16) uint32 array of
+    16-bit limbs (given as numpy), as the port's int32 tensor on
+    `device` (ops/field_minor.py)."""
+    return torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+
+
+def limbs_minor_to_reference(t):
+    """Inverse of limbs_minor_from_reference: a (..., 16) int32 limb
+    tensor on any device -> the reference's (..., 16) uint32 numpy
+    array."""
+    return t.cpu().numpy().astype(np.uint32)

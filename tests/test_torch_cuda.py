@@ -13,6 +13,8 @@ import torch
 
 from halo2_verifier_tpu_torch import weights
 from halo2_verifier_tpu_torch.ops import curve, decomp, field as fm
+from halo2_verifier_tpu_torch.ops import curve_minor as cmin
+from halo2_verifier_tpu_torch.ops import field_minor as fmin
 from halo2_verifier_tpu_torch.ops import field8 as f8
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
 from halo2_verifier_tpu_torch.ops import hostpairing as hp
@@ -483,6 +485,56 @@ def test_fq_inv_kernel_matches_plain(cuda, spec):
     assert torch.equal(got, want)
     assert kernels.LAUNCHES["fq_inv"] == before + 1
     assert int(got[:, vals.index(0)].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("spec", [fm.FQ, fm.FR], ids=["fq", "fr"])
+def test_field_minor_kernels_match_plain(cuda, spec):
+    """The limb-minor field layer on the card: mont_mul (one K1 launch on
+    (3, 5, 16) operands against a (16,) constant), inv_mont (one T3) and
+    pow_fixed (K1 per product) against their plain versions."""
+    vals = _field_values(spec.modulus, 15, 31)
+    a = _limbs_t(vals, cuda).t().contiguous().reshape(3, 5, 16)
+    c = _limbs_t(_field_values(spec.modulus, 9, 32)[-1:], cuda)[:, 0]
+    before = dict(kernels.LAUNCHES)
+    got = fmin.mont_mul(a, c, spec)
+    assert kernels.LAUNCHES["mont_mul"] == before["mont_mul"] + 1
+    assert torch.equal(got, fmin.mont_mul(a, c, spec, plain=True))
+    got = fmin.inv_mont(a, spec)
+    assert kernels.LAUNCHES["fq_inv"] == before["fq_inv"] + 1
+    assert torch.equal(got, fmin.inv_mont(a, spec, plain=True))
+    e = 0xDEADBEEF12345
+    got = fmin.pow_fixed(a, e, spec)
+    assert kernels.LAUNCHES["mont_mul"] == (before["mont_mul"] + 1 + bin(
+        e).count("1") + e.bit_length() - 1)
+    assert torch.equal(got, fmin.pow_fixed(a, e, spec, plain=True))
+
+
+def test_curve_minor_kernels_match_plain(cuda):
+    """The limb-minor curve layer on the card: add (one K2), double (one
+    K3) and to_affine_batch (T3 and two K1) on (2, 64) batches of points,
+    identities and P + (-P) among them, against their plain versions."""
+    base = _points(128)
+    pts = base[:64] + [None] * 8 + base[72:]
+    qs = [hc.g1_neg(p) if i % 5 == 0 else base[(i * 7) % 128]
+          for i, p in enumerate(pts)]
+    p = tuple(c.t().contiguous().reshape(2, 64, 16)
+              for c in _projective(pts, cuda))
+    q = tuple(c.t().contiguous().reshape(2, 64, 16)
+              for c in _projective(qs, cuda))
+    before = dict(kernels.LAUNCHES)
+    r = cmin.add(p, q)
+    assert kernels.LAUNCHES["point_add"] == before["point_add"] + 1
+    assert all(torch.equal(g, w) for g, w in zip(
+        r, cmin.add(p, q, plain=True)))
+    d = cmin.double(r)
+    assert kernels.LAUNCHES["point_double"] == before["point_double"] + 1
+    assert all(torch.equal(g, w) for g, w in zip(
+        d, cmin.double(r, plain=True)))
+    xy = cmin.to_affine_batch(d)
+    assert kernels.LAUNCHES["fq_inv"] == before["fq_inv"] + 1
+    assert kernels.LAUNCHES["mont_mul"] == before["mont_mul"] + 2
+    assert all(torch.equal(g, w) for g, w in zip(
+        xy, cmin.to_affine_batch(d, plain=True)))
 
 
 def _step_operands(width, seed, dev):

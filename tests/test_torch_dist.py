@@ -4,7 +4,9 @@ tests/test_multihost.py: no configuration forms no group; a 2-rank gloo
 group formed from the H2V_* variables or from torchrun's runs all_gather,
 all_to_all_single and broadcast, raw and through the mesh helpers; the
 backend never switches silently; VerifierConfig(mesh_shape=(D,)) builds
-the mesh and raises when no group of D ranks is live."""
+the mesh and raises when no group of D ranks is live; shutdown destroys
+the group (its worker threads joined) while a mesh is still alive, and
+every rank exits 0, group after group."""
 
 import pytest
 import torch
@@ -64,6 +66,31 @@ print(f"DIST_OK rank={rank}", flush=True)
 """
 
 
+STEADY_EXIT_WORKER = r"""
+import sys, weakref
+import torch
+import torch.distributed as tdist
+from halo2_verifier_tpu_torch.parallel import dist
+from halo2_verifier_tpu_torch.parallel import mesh as pmesh
+
+assert dist.init_distributed(device="cpu", timeout=60)
+rank, _n = dist.process_info()
+mesh = pmesh.make_mesh(2, device="cpu")
+assert pmesh.all_gather(mesh, torch.tensor([rank + 1])).flatten().tolist() \
+    == [1, 2]
+group = weakref.ref(tdist.group.WORLD)
+dist.shutdown()
+dist.shutdown()  # idempotent
+assert group() is None, "the process group outlived shutdown"
+try:
+    mesh.group
+    sys.exit("a shut-down mesh still hands out its group")
+except RuntimeError:
+    pass
+print(f"EXIT_OK rank={rank}", flush=True)
+"""
+
+
 def _clear_group_env(monkeypatch):
     for var in GROUP_VARS:
         monkeypatch.delenv(var, raising=False)
@@ -103,6 +130,20 @@ def test_two_rank_group_collectives(tmp_path, style):
         assert got["s"] == [5]
         assert got["bv_mesh"] == [2, r] and got["bv_device"] == "cpu"
         assert "3 ranks" in got["wrong"] and "has 2 ranks" in got["wrong"]
+
+
+def test_group_exits_cleanly_three_times(tmp_path):
+    """A 2-rank gloo group formed three times in a row: one collective,
+    shutdown, exit. shutdown destroys the group though a mesh still
+    refers to it (its gloo worker threads are joined before the
+    interpreter finalizes; a worker left finishing a collective at exit
+    aborted the rank), and every rank exits 0."""
+    for k in range(3):
+        work = tmp_path / f"group{k}"
+        work.mkdir()
+        outs = run_ranks(STEADY_EXIT_WORKER, 2, work, timeout=60)
+        for r, out in enumerate(outs):
+            assert f"EXIT_OK rank={r}" in out, out
 
 
 def test_backend_never_switches(monkeypatch):
