@@ -39,15 +39,25 @@ Phases, one output line each (JSON unless noted):
 4. one forest MSM and one scan MSM per limb backend of a main-path batch's
    size (16,640 random scalars and points in groups of 1,024 and 15,616)
    against the exact host MSM, the f8 window totals bit-equal to the
-   re-limbed u16 totals;
+   re-limbed u16 totals; the forest's packed dispatch at that size
+   (packed_parity): four pinned batches through one slot of recordings,
+   a re-pin among them, each batch's totals bit-equal to the flat
+   chain's and its launches, counted through the replays, the flat
+   chain's;
 5. the main paths, each with every kernel's launch count set to 0 just
    before and read just after, and each refused if a kernel outside its
    list launched or one on it did not: BatchVerifier.verify_stream over
    streamed batches of 1,024 k=14 mac_range proofs (the committed pack
    tiled, as bench.py does), every batch ok, through the VM fast path,
    with the forest MSM (the frontier, point-add and square-root kernels;
-   no Montgomery multiply), then with msm="scan" in "u16" (8 batches) and
-   "f8" (4);
+   no Montgomery multiply) on its default dispatch on the card, "packed"
+   (plan widths pinned, one packed upload, the chain recorded once per
+   pinned signature and replayed; each forest stream's line gives its
+   device_msm_dispatch per batch split into its parts, its recordings,
+   replays and re-pins and the recordings' memory pool), then the split
+   of "flat" against "packed" on warm verifiers, interleaved rounds of
+   8 batches, 32 batches each (dispatch_split), then with msm="scan" in
+   "u16" (8 batches) and "f8" (4);
    for the forest and the scan, a 64-proof batch with one public input
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
@@ -108,8 +118,11 @@ Phases, one output line each (JSON unless noted):
    version and the bound,
    and the square root also at 32 lanes (one warp: one chain's latency),
    K1 also at the device pairing's widest launch;
-   the whole device stage of phase 4's batch-sized forest and scans; the
-   device busy share of a profiled stream on the warm verifier.
+   the whole device stage of phase 4's batch-sized forest (flat, and
+   packed on the pinned plan) and scans; the
+   device busy share of a profiled stream on the warm verifier, whose
+   trace must hold as many frontier and point-add events as their
+   wrappers counted (1 and 30 per batch, through the replays).
 
 The line before the last holds the kernels' record and the one before it
 the `nvidia-smi` text; the last line is
@@ -151,6 +164,19 @@ SCAN_BATCHES = {"u16": 8, "f8": 4}
 K9_BATCH = 256                       # bench.py run_extras' defaults
 K9_BATCHES = 7                       # (H2V_BENCH_EXTRA_BATCH, _BATCHES)
 FOREST_KERNELS = ("forest_frontier0", "point_add", "sqrt_principal")
+# the forest's launches per main-path batch, and a piece of each kernel's
+# name in a profiler trace
+FOREST_PER_BATCH = {"forest_frontier0": 1, "point_add": 30}
+FOREST_TRACE_NAMES = {"forest_frontier0": "frontier0_kernel",
+                      "point_add": "point_add_kernel<h2v::Limbs16>"}
+# the forest dispatch's parts, as the orchestrator times them inside
+# device_msm_dispatch (msm_forest.dispatch_planned and _fuse3)
+DISPATCH_PARTS = ("dispatch_plan", "dispatch_check", "dispatch_pack",
+                  "dispatch_h2d", "dispatch_launch", "dispatch_record",
+                  "dispatch_prefetch")
+SPLIT_WARM_BATCHES = 2               # per dispatch, before the A/B rounds
+SPLIT_ROUND_BATCHES = 8              # rounds in the order A B B A A B B A
+SPLIT_ROUNDS = ("flat", "packed", "packed", "flat") * 2
 MESH_KERNELS = ("forest_frontier0", "point_add")  # host decompression
 MESH_BATCHES = 8                     # the NCCL world of one
 MESH_RANKS = 4                       # gloo ranks sharing the card
@@ -833,9 +859,37 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
                                for k, v in launches.items() if v},
         "lanes": lanes,
     }
+    if verifier_args.get("msm", "forest") == "forest" and "mesh" not in \
+            verifier_args:
+        result.update(forest_dispatch_record(bv, n_batches))
     record = {"launches": launches, "lanes": lanes, "widest": widest,
               "batches": n_batches}
     return result, record, bv
+
+
+def dispatch_split(timings, n_batches):
+    """device_msm_dispatch per batch (ms) split into its parts, and what
+    the parts leave ("other": the orchestrator's own Python)."""
+    per = {k[len("dispatch_"):]: timings.totals.get(k, 0.0) / n_batches * 1e3
+           for k in DISPATCH_PARTS}
+    total = timings.totals.get("device_msm_dispatch", 0.0) / n_batches * 1e3
+    per["other"] = total - sum(per.values())
+    return {"device_msm_dispatch_ms_per_batch": round(total, 4),
+            "split_ms_per_batch": {k: round(v, 4) for k, v in per.items()}}
+
+
+def forest_dispatch_record(bv, n_batches):
+    """A single-device forest stream's dispatch, its split, and its
+    recordings: made, replaced by a re-pin, replays, re-pins, and the
+    live recordings' private memory pools."""
+    recs = bv.forest_recordings
+    return {"forest_dispatch": bv.forest_dispatch,
+            **dispatch_split(bv.timings, n_batches),
+            "recordings": recs.recorded,
+            "recordings_replaced": recs.replaced,
+            "recordings_evicted": recs.evicted,
+            "replays": recs.replays, "plan_repins": bv.plan_repins,
+            "recording_pool_bytes": recs.pool_bytes()}
 
 
 def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
@@ -857,9 +911,135 @@ def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
     if res.ok or res.failed_indices != [TAMPER_INDEX]:
         raise AssertionError(f"{phase}: ok={res.ok} "
                              f"failed={res.failed_indices}")
-    return {"phase": phase, "proofs": TAMPER_BATCH,
+    line = {"phase": phase, "proofs": TAMPER_BATCH,
             "ok": res.ok, "failed_indices": res.failed_indices,
             "launches": dict(kernels.LAUNCHES)}
+    if verifier_args.get("msm", "forest") == "forest" and "mesh" not in \
+            verifier_args:
+        recs = bv.forest_recordings
+        line.update(forest_dispatch=bv.forest_dispatch,
+                    pin_keys=sorted(bv._plan_pins),
+                    recordings=recs.recorded,
+                    recordings_replaced=recs.replaced,
+                    recordings_evicted=recs.evicted, replays=recs.replays,
+                    plan_repins=bv.plan_repins,
+                    recording_pool_bytes=recs.pool_bytes())
+    return line
+
+
+def phase_dispatch_split(torch, fixture, BatchVerifier):
+    """The forest dispatch split on the card, "flat" against "packed":
+    one warm verifier per dispatch (SPLIT_WARM_BATCHES batches each
+    first, untimed), then SPLIT_ROUNDS of SPLIT_ROUND_BATCHES streamed
+    batches each, interleaved A B B A ..., so both dispatches see the
+    same host; per dispatch, device_msm_dispatch per batch and its parts,
+    the main thread's ms per batch and each round's paced rate."""
+    from halo2_verifier_tpu_torch.utils.metrics import StageTimings
+
+    params, vk, items = fixture
+    batch = tile(items, BATCH)
+    bvs = {}
+    for name in ("flat", "packed"):
+        bvs[name] = BatchVerifier(params, vk, forest_dispatch=name)
+        for r in bvs[name].verify_stream(
+                batch for _ in range(SPLIT_WARM_BATCHES)):
+            if not r.ok:
+                raise AssertionError(f"dispatch_split: a {name} warm-up "
+                                     "batch failed")
+        bvs[name].timings = StageTimings()
+    rates = {name: [] for name in bvs}
+    for name in SPLIT_ROUNDS:
+        stamps = []
+        for r in bvs[name].verify_stream(
+                batch for _ in range(SPLIT_ROUND_BATCHES)):
+            stamps.append(time.time())
+            if not r.ok:
+                raise AssertionError(f"dispatch_split: a {name} batch "
+                                     "failed")
+        rates[name].append(round((len(stamps) - 3) * BATCH
+                                 / (stamps[-3] - stamps[0]), 1))
+    torch.cuda.synchronize()
+    res = {"phase": "dispatch_split", "batch_size": BATCH,
+           "order": list(SPLIT_ROUNDS), "round_batches": SPLIT_ROUND_BATCHES}
+    for name, bv in bvs.items():
+        n = SPLIT_ROUND_BATCHES * SPLIT_ROUNDS.count(name)
+        t = bv.timings.totals
+        res[name] = {
+            "batches": n, **dispatch_split(bv.timings, n),
+            "main_thread_ms_per_batch": round(sum(
+                t[k] for k in ("host_replay", "host_assemble",
+                               "device_msm_dispatch")) / n * 1e3, 4),
+            "host_replay_ms_per_batch": round(t["host_replay"] / n * 1e3, 4),
+            "proofs_per_s_paced_by_round": rates[name],
+            "recordings": bv.forest_recordings.recorded,
+            "replays": bv.forest_recordings.replays,
+            "plan_repins": bv.plan_repins}
+    return res
+
+
+def phase_packed_parity(torch, np, kernels, msm_forest, case):
+    """The packed dispatch's recordings at a main-path batch's size (phase
+    4's points, groups of 1,024 and 15,616): a narrow batch (phase 4's
+    scalars cut to 128 bits), then phase 4's batch (it outgrows the pin: a
+    new recording replaces the first), another random batch, and phase
+    4's batch again (a replay, its pin covering it). Each batch's window
+    totals bit-equal to the flat chain's on the same pinned plan, its
+    launches and lanes (the packed ones counted through the replays)
+    equal to the flat chain's; the recordings' private pool and the time
+    of each recording and replay."""
+    from halo2_verifier_tpu_torch.ops.constants import R
+    from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
+    from halo2_verifier_tpu_torch.utils.metrics import StageTimings
+
+    s_np, x, y, sizes, _want = case
+    narrow = s_np.copy()
+    narrow[:, 8:] = 0
+    rng = np.random.default_rng(17)
+    other = ints_to_limbs([int.from_bytes(rng.bytes(32), "little") % R
+                           for _ in range(s_np.shape[0])])
+    dev = torch.device("cuda")
+    recs = msm_forest.ForestRecordings()
+    pin = None
+    rows = []
+    err = 0
+    for name, sc in (("narrow", narrow), ("full", s_np), ("other", other),
+                     ("full_again", s_np)):
+        plan, pin = msm_forest.pin_plan_widths(
+            msm_forest.host_plan(sc, sizes), pin)
+        kernels.reset_launches()
+        flat = msm_forest.dispatch_planned(x, y, plan, dev)
+        torch.cuda.synchronize()
+        want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
+        kernels.reset_launches()
+        timings = StageTimings()
+        t0 = time.perf_counter()
+        got = msm_forest.dispatch_planned_fuse3(
+            x, y, plan, dev, recordings=recs, slot="parity",
+            timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        equal = bool(torch.equal(got, flat))
+        err = max(err, max_abs_err(torch, got, flat))
+        same_launches = (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
+        rows.append({
+            "batch": name, "level_widths": [int(plan["point_idx0"].shape[0])]
+            + [int(iL.shape[0]) for iL, _ in plan["levels"]],
+            "totals_equal_flat": equal, "launches_equal_flat": same_launches,
+            "launches": {k: v for k, v in want[0].items() if v},
+            "recorded": "dispatch_record" in timings.totals,
+            "ms": round(wall * 1e3, 3),
+            "record_ms": round(timings.totals.get("dispatch_record", 0)
+                               * 1e3, 3)})
+        if not (equal and same_launches):
+            raise AssertionError(f"packed_parity: batch {name} differs from "
+                                 "the flat chain")
+    if recs.replays < 1 or recs.replaced < 1:
+        raise AssertionError("packed_parity: no replay after a re-pin")
+    return {"phase": "packed_parity", "tolerance": 0, "groups": list(sizes),
+            "batches": rows, "recordings": recs.recorded,
+            "recordings_replaced": recs.replaced, "replays": recs.replays,
+            "recording_pool_bytes": recs.pool_bytes(),
+            "max_abs_err": err}
 
 
 def k9_workloads():
@@ -2136,13 +2316,25 @@ def stage_ms(torch, fn, reps=10):
                 k[:60]: round(v / 1e3 / 3, 4) for k, v in top}}
 
 
-def phase_forest_batch(torch, msm_forest, forest_inputs):
+def phase_forest_batch(torch, msm_forest, forest_inputs, case):
     """The whole device stage (upload, conversion, forest levels, bucket
-    phase) of the batch-sized forest of phase 4, on its inputs."""
+    phase) of the batch-sized forest of phase 4, on its inputs: the flat
+    dispatch, and beside it the packed one on the pinned plan."""
+    plan_scalars, _x, _y, sizes, _want = case
     x_np, y_np, plan, dev = forest_inputs
+    pinned, _pin = msm_forest.pin_plan_widths(
+        msm_forest.host_plan(plan_scalars, sizes))
+    recs = msm_forest.ForestRecordings()
     return {"phase": "timing_forest_batch",
             **stage_ms(torch, lambda: msm_forest.dispatch_planned(
                 x_np, y_np, plan, dev)),
+            "packed": {
+                **stage_ms(torch, lambda: msm_forest.dispatch_planned_fuse3(
+                    x_np, y_np, pinned, dev, recordings=recs)),
+                "basis": "pack, one H2D copy and one replay per call; "
+                         "the first call records",
+                "recordings": recs.recorded, "replays": recs.replays,
+                "recording_pool_bytes": recs.pool_bytes()},
             "forest_levels": len(plan["levels"]),
             "level0_lanes": int(plan["point_idx0"].shape[0]),
             "entries": int(plan["entries"]), "plan_adds": int(plan["adds"])}
@@ -2163,14 +2355,21 @@ def phase_scan_batch(torch, msm_scan, scan_inputs, backend):
                 int(idx.shape[0]), groups * 32, levels)}
 
 
-def phase_profile(torch, bv, fixture, n_batches):
+def phase_profile(torch, kernels, bv, fixture, n_batches):
     """Device busy share of a whole stream on the warm verifier of the
     main path: the profiler's device-side events (kernels and copies)
-    over the stream's wall time, and device time by kernel name."""
+    over the stream's wall time, and device time by kernel name. The
+    trace also holds the counters to the device: each forest kernel's
+    events in it must equal the launches its wrapper counted in the
+    stream (on the packed dispatch, the replays times the launches each
+    recording holds), FOREST_PER_BATCH per batch."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _params, _vk, items = fixture
     batch = tile(items, BATCH)
+    before = dict(kernels.LAUNCHES)
+    replays = bv.forest_recordings.replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -2179,6 +2378,16 @@ def phase_profile(torch, bv, fixture, n_batches):
                 raise AssertionError("profiled batch failed")
         torch.cuda.synchronize()
         wall = time.time() - t0
+    counted = {k: kernels.LAUNCHES[k] - before[k] for k in FOREST_PER_BATCH}
+    traced = dict.fromkeys(FOREST_PER_BATCH, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, name in FOREST_TRACE_NAMES.items():
+                traced[k] += name in e.name
+    want = {k: n * n_batches for k, n in FOREST_PER_BATCH.items()}
+    if not traced == counted == want:
+        raise AssertionError(f"profile: kernel events in the trace {traced}, "
+                             f"launches counted {counted}, expected {want}")
     dev = device_times(prof)
     busy_s = sum(dev.values()) / 1e6
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
@@ -2186,6 +2395,9 @@ def phase_profile(torch, bv, fixture, n_batches):
             "wall_seconds": round(wall, 4),
             "device_busy_seconds": round(busy_s, 4) if dev else None,
             "device_busy_share": round(busy_s / wall, 4) if dev else None,
+            "forest_dispatch": bv.forest_dispatch,
+            "replays": bv.forest_recordings.replays - replays,
+            "kernel_events_traced": traced, "launches_counted": counted,
             "device_ms_per_batch_by_name": {
                 k[:60]: round(v / 1e3 / n_batches, 3) for k, v in top}}
 
@@ -2268,6 +2480,7 @@ def run(torch, card, dev, n_batches, make_verifier):
     if not emit(forest_res)["equal_to_host_msm"]:
         raise AssertionError("forest MSM differs from the host MSM")
     emit(phase_frontier(torch, np, msm_forest, forest_inputs, dev))
+    emit(phase_packed_parity(torch, np, kernels, msm_forest, case))
     scan_res, scan_inputs = phase_scan_msm(torch, msm_scan, msm, weights,
                                            case, dev)
     emit(scan_res)
@@ -2285,6 +2498,7 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(main_res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch"))
+    emit(phase_dispatch_split(torch, fixture, make_verifier))
     for backend, expect in (("u16", ("mont_mul", "point_add",
                                       "sqrt_principal")),
                             ("f8", ("mont_mul8", "point_add8",
@@ -2367,10 +2581,10 @@ def run(torch, card, dev, n_batches, make_verifier):
             "mesh_ranks_path": [rank.get(r["name"], 0)
                                 for rank in ranks_launches]}
         r["launches_minor_path"] = minor_record["launches"].get(r["name"], 0)
-    emit(phase_forest_batch(torch, msm_forest, forest_inputs))
+    emit(phase_forest_batch(torch, msm_forest, forest_inputs, case))
     for backend in ("u16", "f8"):
         emit(phase_scan_batch(torch, msm_scan, scan_inputs, backend))
-    emit(phase_profile(torch, bv, fixture, n_batches))
+    emit(phase_profile(torch, kernels, bv, fixture, n_batches))
     for r in rows:
         emit({"phase": f"timing_{r['name']}", **r})
     for r in beside:

@@ -11,7 +11,9 @@ Every C entry launches on the caller's stream and returns
 cudaGetLastError(); the wrappers raise on a nonzero code. A wrapper adds
 one to its launch counter where it launches its kernel, and nowhere else;
 after reset_launches(record=True) it also keeps the arguments of its
-widest launch, so a caller can rerun exactly that launch.
+widest launch, so a caller can rerun exactly that launch. Under a CUDA
+graph capture on the calling thread (recorded_launches) a wrapper records
+its kernel instead, and count_replay counts the launches of each replay.
 There is no fallback: a wrapper given CPU tensors raises (the plain
 versions live beside the callers, in ops/field.py, ops/field8.py,
 ops/curve.py, ops/decomp.py, ops/msm_forest.py and ops/pairing.py).
@@ -29,6 +31,7 @@ instruction count with the counts of the classes that explain its bound.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -71,6 +74,7 @@ LANES = dict.fromkeys(LAUNCHES, 0)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
 _recording = False
+_capture = threading.local()  # .tally while a graph captures on the thread
 
 
 def reset_launches(record: bool = False) -> None:
@@ -86,11 +90,40 @@ def reset_launches(record: bool = False) -> None:
 
 
 def _count(name: str, lanes: int, args: tuple) -> None:
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        # a CUDA graph is capturing on this thread: the kernel was
+        # recorded, not launched; count_replay counts each replay of it
+        n, total = tally.get(name, (0, 0))
+        tally[name] = (n + 1, total + lanes)
+        return
     with _lock:
         LAUNCHES[name] += 1
         LANES[name] += lanes
         if _recording and lanes > WIDEST.get(name, (0,))[0]:
             WIDEST[name] = (lanes, args)
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """While a CUDA graph captures on this thread, the wrappers record
+    their kernels into it instead of launching them: this tallies those
+    launches, {kernel: (launches, lanes)}, in place of the counters."""
+    tally = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def count_replay(tally: dict) -> None:
+    """Count the launches one replay of a recorded graph makes (its
+    recorded_launches tally): a replay launches every kernel it holds."""
+    with _lock:
+        for name, (n, lanes) in tally.items():
+            LAUNCHES[name] += n
+            LANES[name] += lanes
 
 
 def _cuda_tool(name: str) -> str:

@@ -9,6 +9,9 @@ Pipeline:
 3. DEVICE: both MSMs as one host-planned addition forest
    (ops/msm_forest.py) or, with msm="scan", one host-sorted segmented
    scan (ops/msm_scan.py), giving a (3, nlimbs, 64) window-totals tensor.
+   The forest's plan widths are pinned per workload; on CUDA its default
+   dispatch packs every operand into one upload and replays the chain
+   recorded for the pinned signature (forest_dispatch="packed").
 4. HOST: exact combine of the window totals and one pairing per batch
    (the native host pairing, or with pairing="device" the tower of
    ops/pairing.py on the verifier's device); on failure, bisection over
@@ -50,7 +53,7 @@ from ..protocol.kzg import DualMSM, VerifyFailure, pairing_backend
 from ..protocol.verifier import verify_proof
 from ..transcript import TRANSCRIPT_READERS
 from ..utils.device import resolve_device
-from ..utils.metrics import StageTimings
+from ..utils.metrics import StageTimings, maybe_stage
 from . import mesh as pmesh
 
 
@@ -99,7 +102,13 @@ class BatchVerifier:
     the presorted scan) or "windows", "forest", "scan" to force a kind
     where it applies (the reference's H2V_MESH_SHARD).
     mesh_upload: "shard" or "replicate", the windows kind's point-table
-    upload (the reference's H2V_MESH_UPLOAD)."""
+    upload (the reference's H2V_MESH_UPLOAD).
+    forest_dispatch: the forest MSM's dispatch on one device, the
+    reference's _forest_mode: "packed" (its accelerator dispatch: plan
+    widths pinned per workload, one packed upload per batch, on CUDA the
+    chain recorded once per pinned signature and replayed) or "flat" (its
+    CPU dispatch: an upload per operand, launches from Python); None =
+    "packed" on CUDA, "flat" otherwise. The mesh keeps its own dispatch."""
 
     # padded sizes quantize to this granularity
     PAD_GRAN = 256
@@ -108,7 +117,7 @@ class BatchVerifier:
                  device=None, rng=None, strategy="accumulator",
                  pairing="host", msm="forest", decomp=None, mesh=None,
                  limb_backend=msm_scan.DEFAULT_BACKEND, mesh_shard=None,
-                 mesh_upload="shard"):
+                 mesh_upload="shard", forest_dispatch=None):
         if strategy not in ("accumulator", "single"):
             raise ValueError(f"unknown strategy {strategy!r} "
                              "(expected 'accumulator' or 'single')")
@@ -127,6 +136,9 @@ class BatchVerifier:
         if limb_backend not in ("u16", "f8"):
             raise ValueError(f"unknown limb_backend {limb_backend!r} "
                              "(expected 'u16' or 'f8')")
+        if forest_dispatch not in (None, "packed", "flat"):
+            raise ValueError(f"unknown forest_dispatch {forest_dispatch!r} "
+                             "(expected None, 'packed' or 'flat')")
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -151,6 +163,16 @@ class BatchVerifier:
         self.mesh_shard = mesh_shard
         self.mesh_upload = mesh_upload
         self.mesh_wire_stats = {}
+        self.forest_dispatch = forest_dispatch or (
+            "packed" if self.device.type == "cuda" else "flat")
+        # per-workload plan-width pins (msm_forest.pin_plan_widths), keyed
+        # by repr(tuple(sizes)) as the reference keys them; re-pins counts
+        # a pin that grew. The packed dispatch's recordings are kept per
+        # pin key
+        self._plan_pins = {}
+        self._pin_lock = threading.Lock()
+        self.plan_repins = 0
+        self.forest_recordings = msm_forest.ForestRecordings()
         # the mesh path keeps host decompression, as the reference's does
         self.decomp = (self.device.type == "cuda" and mesh is None) \
             if decomp is None else bool(decomp)
@@ -263,13 +285,13 @@ class BatchVerifier:
             points = self._collect_pair(handle)
         return points[0], points[1]
 
-    def _msm_dispatch_pair(self, left, right, pads=None):
+    def _msm_dispatch_pair(self, left, right, pads=None, timings=None):
         """Enqueue BOTH accumulator MSMs as one grouped device dispatch.
         Returns an async handle; no host sync here.
 
         pads: per-side padded entry counts — None (quantize each side to
         PAD_GRAN), an int (both sides, as the bisection path does), or a
-        (pad_left, pad_right) tuple."""
+        (pad_left, pad_right) tuple. timings: as _dispatch_limbs'."""
         # vk-shared bases repeat across every proof in the batch: summing
         # their scalars on the host collapses ~1/3 of the entries
         left = _dedup_entries(left)
@@ -299,11 +321,16 @@ class BatchVerifier:
                     ys.append(pt[1])
         return self._dispatch_limbs(ints_to_limbs(ss), ints_to_limbs(xs),
                                     ints_to_limbs(ys),
-                                    [len(g) for g in groups])
+                                    [len(g) for g in groups], timings)
 
-    def _dispatch_limbs(self, s_np, x_np, y_np, sizes):
+    def _dispatch_limbs(self, s_np, x_np, y_np, sizes, timings=None):
         """Dispatch the grouped MSM from canonical limb arrays (scalars and
-        affine coords, concatenated per group). Returns the async handle."""
+        affine coords, concatenated per group). Returns the async handle.
+
+        timings: a StageTimings that gets the single-device forest
+        dispatch's parts (dispatch_plan: host_plan and the pin; the
+        dispatch's own, see msm_forest.dispatch_planned; dispatch_prefetch);
+        the stream passes its own, the bisection none."""
         self.msm_entries_dispatched += s_np.shape[0]
         if self.msm == "host":
             # exact host MSM (native C++ Pippenger), for orchestration
@@ -337,15 +364,35 @@ class BatchVerifier:
                 x_np, y_np, idx_sorted, keys_sorted, len(sizes), levels,
                 self.device, backend=self.limb_backend)
             return ("grouped", self._prefetch_d2h(arr))
-        plan = msm_forest.host_plan(s_np, sizes)
-        # device point adds: forest levels (plan) + per-window bit-plane
-        # bucket reduction (7-level tree over 128 buckets x 8 bit planes +
-        # 14-step Horner, see msm_forest._bucket_phase)
+        key = repr(tuple(sizes))
+        with maybe_stage(timings, "dispatch_plan"):
+            plan = msm_forest.host_plan(s_np, sizes)
+            # pin the level/part-width signature per workload: random
+            # weights drift widths across quantization boundaries batch to
+            # batch, and each new signature is a new recording
+            with self._pin_lock:
+                old_pin = self._plan_pins.get(key)
+                plan, pin = msm_forest.pin_plan_widths(plan, old_pin)
+                if pin != old_pin:
+                    self._plan_pins[key] = pin
+                    self.plan_repins += old_pin is not None
+        # device point adds: forest levels (plan, with the pin's pad adds)
+        # + per-window bit-plane bucket reduction (7-level tree over 128
+        # buckets x 8 bit planes + 14-step Horner, see
+        # msm_forest._bucket_phase)
         self.point_adds_dispatched += plan["adds"] + (
             len(sizes) * NUM_WINDOWS * (127 * 8 + 14)
         )
-        arr = msm_forest.dispatch_planned(x_np, y_np, plan, self.device)
-        return ("grouped", self._prefetch_d2h(arr))
+        if self.forest_dispatch == "packed":
+            arr = msm_forest.dispatch_planned_fuse3(
+                x_np, y_np, plan, self.device,
+                recordings=self.forest_recordings, slot=key,
+                timings=timings)
+        else:
+            arr = msm_forest.dispatch_planned(x_np, y_np, plan, self.device,
+                                              timings)
+        with maybe_stage(timings, "dispatch_prefetch"):
+            return ("grouped", self._prefetch_d2h(arr))
 
     def _dispatch_mesh(self, s_np, x_np, y_np, sizes):
         """The sharded kinds, by the reference's fall-through: windows when
@@ -527,7 +574,7 @@ class BatchVerifier:
                 np.concatenate(parts["s"]),
                 np.concatenate(parts["x"]),
                 np.concatenate(parts["y"]),
-                sizes,
+                sizes, self.timings,
             )
         return handle, pads
 
@@ -671,7 +718,8 @@ class BatchVerifier:
                     )
                 with self.timings.stage("device_msm_dispatch"):
                     handle = self._msm_dispatch_pair(left, right,
-                                                     stream_pads)
+                                                     stream_pads,
+                                                     self.timings)
                 submit(batch, duals, handle)
                 while len(pending) > depth:
                     yield result()

@@ -7,7 +7,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 
@@ -31,6 +31,12 @@ class StageTimings:
                 self.totals[name] += dt
                 self.counts[name] += 1
 
+    def add(self, name: str, seconds: float) -> None:
+        """Add one call of `seconds` to a stage timed by its caller."""
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+
     def report(self) -> dict:
         return {
             name: {
@@ -46,3 +52,8 @@ class StageTimings:
             for name in sorted(self.totals, key=lambda n: -self.totals[n])
         ]
         return " ".join(parts)
+
+
+def maybe_stage(timings, name: str):
+    """timings.stage(name), or nothing when timings is None."""
+    return nullcontext() if timings is None else timings.stage(name)

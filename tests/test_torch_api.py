@@ -1,7 +1,7 @@
 """PyTorch port, public surface (halo2_verifier_tpu_torch/__init__.py,
 config.py): the export list equals the JAX package's, every name from the
 port's own modules; VerifierConfig has the reference's fields and
-defaults and builds the port's BatchVerifier on the device it is given;
+defaults (and the port's forest_dispatch) and builds the port's BatchVerifier on the device it is given;
 a mesh of D devices needs a live process group of D ranks."""
 
 import dataclasses
@@ -34,7 +34,10 @@ def test_verifier_config_fields_and_defaults_match_reference():
     def fields(cls):
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
-    assert fields(port.VerifierConfig) == fields(RefConfig)
+    # plus the port's forest_dispatch, which the reference reads from its
+    # H2V_FOREST_* variables instead
+    assert fields(port.VerifierConfig) == fields(RefConfig) + [
+        ("forest_dispatch", None)]
 
 
 @pytest.mark.parametrize("strategy", ["single", "accumulator"])

@@ -379,6 +379,188 @@ def test_forest_on_card_equals_plain_and_host_msm(cuda):
         hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
 
 
+def _forest_case(pts, scalars, sizes):
+    return (ints_to_limbs(scalars), ints_to_limbs([p[0] for p in pts]),
+            ints_to_limbs([p[1] for p in pts]), sizes)
+
+
+def test_packed_replays_equal_flat_chain(cuda):
+    """Four batches of one workload through one slot of the packed
+    dispatch's recordings: two narrow batches (the first runs eagerly and
+    is recorded, the second replays), then two random ones (the first
+    outgrows the pin: a new recording replaces the old). Each batch's
+    window totals are bit-equal to the flat chain's on the same pinned
+    plan, and its launches, counted through the replays, are the flat
+    chain's."""
+    pts = _points(600)
+    rng = np.random.default_rng(4)
+    small = [1 + i for i in range(600)]
+    sets = [small, small[::-1]] + [
+        [int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
+        for _ in range(2)]
+    recs = msm_forest.ForestRecordings()
+    pin = None
+    layouts = []
+    for sc in sets:
+        s_np, x_np, y_np, sizes = _forest_case(pts, sc, [200, 400])
+        plan, pin = msm_forest.pin_plan_widths(
+            msm_forest.host_plan(s_np, sizes), pin)
+        layouts.append(msm_forest.packed_layout(plan))
+        kernels.reset_launches()
+        flat = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
+        torch.cuda.synchronize()
+        want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
+        kernels.reset_launches()
+        got = msm_forest.dispatch_planned_fuse3(
+            x_np, y_np, plan, cuda, recordings=recs, slot="w")
+        torch.cuda.synchronize()
+        assert torch.equal(got, flat)
+        assert (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
+        assert want[0]["forest_frontier0"] == 1
+        assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
+            hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
+    new = [i == 0 or layouts[i] != layouts[i - 1] for i in range(4)]
+    assert new[:3] == [True, False, True]
+    assert (recs.recorded, recs.replaced, recs.replays) == (
+        sum(new), sum(new) - 1, 4 - sum(new))
+    assert recs.pool_bytes() > 0
+
+
+def test_packed_capture_failure_raises(cuda, monkeypatch):
+    """A chain that cannot be captured (here: a host read inside it)
+    raises from the dispatch, with no recording kept and no result from
+    another route; the next dispatch records and replays as usual."""
+    pts = _points(300)
+    rng = np.random.default_rng(8)
+    sc = [int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
+    s_np, x_np, y_np, sizes = _forest_case(pts, sc, [100, 200])
+    plan = msm_forest.host_plan(s_np, sizes)
+    real = msm_forest.packed_chain
+
+    def syncing(buf, layout):
+        out = real(buf, layout)
+        out.sum().item()  # a host synchronization: refused under capture
+        return out
+
+    recs = msm_forest.ForestRecordings()
+    monkeypatch.setattr(msm_forest, "packed_chain", syncing)
+    with pytest.raises(RuntimeError):
+        msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, cuda,
+                                          recordings=recs)
+    assert recs.recorded == 0 and recs.pool_bytes() == 0
+    monkeypatch.setattr(msm_forest, "packed_chain", real)
+    flat = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
+    for _ in range(2):
+        got = msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, cuda,
+                                                recordings=recs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, flat)
+    assert (recs.recorded, recs.replays) == (1, 1)
+
+
+def test_packed_stream_launches_equal_flat(cuda):
+    """The main path's workload streamed on each forest dispatch: the
+    same verdicts, and with the same isolation weights the same launches
+    and lanes per kernel, the packed stream's counted through its replays;
+    one recording serves it, and one more per re-pin."""
+    import random
+
+    params, vk, items = weights.load_k14_mac_fixture()
+    batches = [items[:16], items[16:32], items[:16]]
+    seen = {}
+    for dispatch in ("flat", "packed"):
+        weights_rng = random.Random(7)
+        bv = BatchVerifier(params, vk, forest_dispatch=dispatch,
+                           rng=lambda: 1 + weights_rng.randrange(R - 1))
+        kernels.reset_launches()
+        res = [r.ok for r in bv.verify_stream(batches)]
+        torch.cuda.synchronize()
+        seen[dispatch] = (res, dict(kernels.LAUNCHES), dict(kernels.LANES),
+                          bv.point_adds_dispatched)
+        if dispatch == "packed":
+            recs = bv.forest_recordings
+            assert recs.recorded + recs.replays == len(batches)
+            assert recs.recorded == 1 + bv.plan_repins
+    assert seen["flat"][0] == [True] * 3
+    assert seen["packed"][1]["forest_frontier0"] == 3
+    assert seen["packed"] == seen["flat"]
+
+
+def _pinned_cases(pts, seeds, sizes):
+    """Random batches of one workload, each plan pinned at the widths
+    that cover them all (one layout): [(x, y, plan)]."""
+    cases = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        sc = [int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
+        cases.append(_forest_case(pts, sc, sizes))
+    pin = None
+    for s_np, _x, _y, _sizes in cases:
+        _, pin = msm_forest.pin_plan_widths(
+            msm_forest.host_plan(s_np, sizes), pin)
+    return [(x_np, y_np, msm_forest.pin_plan_widths(
+        msm_forest.host_plan(s_np, sizes), pin)[0])
+        for s_np, x_np, y_np, _sizes in cases]
+
+
+def test_packed_totals_survive_the_next_replay(cuda):
+    """Three batches of one layout through one slot, dispatched back to
+    back before any is read: each replay's totals stay its own (the
+    dispatch returns a copy of the recording's static output, queued
+    before the next replay can overwrite it)."""
+    cases = _pinned_cases(_points(600), (21, 22, 23), [200, 400])
+    layouts = {msm_forest.packed_layout(plan) for _x, _y, plan in cases}
+    assert len(layouts) == 1
+    recs = msm_forest.ForestRecordings()
+    got = [msm_forest.dispatch_planned_fuse3(x, y, plan, cuda,
+                                             recordings=recs, slot="w")
+           for x, y, plan in cases]
+    want = [msm_forest.dispatch_planned(x, y, plan, cuda)
+            for x, y, plan in cases]
+    torch.cuda.synchronize()
+    assert (recs.recorded, recs.replays) == (1, 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[1], got[2])
+
+
+def test_packed_recordings_evict_the_least_recent(cuda):
+    """At most max_slots recordings live: a new slot beyond them frees the
+    least recently dispatched one (synchronized first), and a freed slot
+    records anew; every result stays bit-equal to the flat chain."""
+    (x, y, plan), = _pinned_cases(_points(300), (31,), [100, 200])
+    flat = msm_forest.dispatch_planned(x, y, plan, cuda)
+    recs = msm_forest.ForestRecordings(max_slots=2)
+    for slot in ("a", "b", "a", "c", "a", "b"):
+        got = msm_forest.dispatch_planned_fuse3(x, y, plan, cuda,
+                                                recordings=recs, slot=slot)
+        assert torch.equal(got, flat)
+    # a, b recorded; a replays; c evicts b; a replays; b evicts c
+    assert (recs.recorded, recs.evicted, recs.replays) == (4, 2, 2)
+    assert list(recs._slots) == ["a", "b"]
+    assert recs.pool_bytes() == sum(r.pool_bytes
+                                    for r in recs._slots.values()) > 0
+
+
+def test_packed_stream_pad_to_localizes_a_tampered_batch(cuda):
+    """A stream pinned with pad_to, so its batches and the bisection of a
+    failing one share one pin key and one recording, the finish worker's
+    dispatches beside the main thread's: the tampered batch fails at its
+    index and every other batch, before and after it, is ok."""
+    params, vk, items = weights.load_k14_mac_fixture()
+    good = items[:16]
+    bad = list(good)
+    p, inst = bad[5]
+    bad[5] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
+    bv = BatchVerifier(params, vk)
+    assert bv.forest_dispatch == "packed"
+    res = [(r.ok, r.failed_indices) for r in bv.verify_stream(
+        [good, good, bad, good, good, good], pad_to=1024)]
+    assert res == [(True, [])] * 2 + [(False, [5])] + [(True, [])] * 3
+    assert list(bv._plan_pins) == [repr((1024, 1024))]
+    assert bv.forest_recordings.replays > 0
+
+
 def test_k14_stream_on_card(cuda):
     """Two small streamed batches of the main path's workload on the card,
     the second with one public input changed by +1."""
