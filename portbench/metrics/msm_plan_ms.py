@@ -1,0 +1,11 @@
+"""msm_plan_ms: seconds of the program's stage `dispatch_plan` inside the window, over all
+threads, per batch handed over in the window, in ms."""
+
+STAGE = "dispatch_plan"
+
+
+def read(run):
+    n = len(run.handed_in_window())
+    if run.stages is None or not n:
+        return None
+    return run.stage_seconds(STAGE) / n * 1e3
