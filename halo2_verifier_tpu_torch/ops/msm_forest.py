@@ -60,7 +60,8 @@ def _quant(n: int, q: int) -> int:
 
 
 def host_plan(scalars_np, groups, quant: int | None = None,
-              window_lo: int = 0, window_count: int | None = None):
+              window_lo: int = 0, window_count: int | None = None,
+              timings=None):
     """Plan the whole forest: native C++ planner when available (counting
     sort + analytic level construction, ~13x the numpy path — it sits on
     the main-thread critical path between VM replay and device dispatch),
@@ -69,13 +70,19 @@ def host_plan(scalars_np, groups, quant: int | None = None,
 
     window_lo/window_count select a window subset per group — the
     window-sharded multi-chip path plans chip d over windows
-    [d*W/D, (d+1)*W/D) of every group (keys local to the subset)."""
-    plan = _host_plan_native(scalars_np, groups, quant, window_lo,
-                             window_count)
-    if plan is None:
-        plan = host_plan_np(scalars_np, groups, quant, window_lo,
-                            window_count)
-    return _canonicalize_plan(plan)
+    [d*W/D, (d+1)*W/D) of every group (keys local to the subset).
+
+    timings: an optional utils.metrics.StageTimings that gets the plan's
+    parts: plan_native (the planner, native or numpy) and
+    plan_canonicalize (_canonicalize_plan)."""
+    with maybe_stage(timings, "plan_native"):
+        plan = _host_plan_native(scalars_np, groups, quant, window_lo,
+                                 window_count)
+        if plan is None:
+            plan = host_plan_np(scalars_np, groups, quant, window_lo,
+                                window_count)
+    with maybe_stage(timings, "plan_canonicalize"):
+        return _canonicalize_plan(plan)
 
 
 def _canonicalize_plan(plan):

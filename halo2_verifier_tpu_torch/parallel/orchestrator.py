@@ -29,6 +29,20 @@ kind falls through windows -> point-sharded forest -> presorted scan by
 the mesh size, as the reference's does. Every collective is issued from
 the dispatching thread, in stream order on every rank: the stream keeps
 one finish worker, and a failing batch is localized on that thread.
+
+Spans: the stages `timings` (utils/metrics.StageTimings) gets from a
+stream. On the thread that consumes verify_stream: decomp_dispatch (the
+pre-pass's gather, launch, D2H enqueue and hand-off, one batch ahead),
+decomp_wait (the block on its roots), host_replay (with replay_vm, the
+native VM call, inside it; the rest is the staging around it),
+host_assemble, device_msm_dispatch (with dispatch_plan, inside it
+plan_native, plan_canonicalize and plan_pin, then msm_forest's dispatch_*
+parts and dispatch_prefetch) and finish_wait (the block on the oldest
+batch's finish). On a finish worker: msm_wait (the wait for the window
+totals' copy), msm_combine (their exact host fold) and <pairing>_pairing.
+localize times the whole of a failing batch's localization, wherever it
+runs, and holds its own replay, MSM and pairing stages; it is an
+operator's span: what finding a bad proof costs.
 """
 
 from __future__ import annotations
@@ -244,7 +258,8 @@ class BatchVerifier:
                 duals = [None] * len(items)
                 for key, members in groups.items():
                     out = self._vm_programs[key].replay_batch(
-                        [(p, inst) for _, p, inst in members]
+                        [(p, inst) for _, p, inst in members],
+                        timings=self.timings,
                     )
                     for (i, _, _), d in zip(members, out):
                         duals[i] = d
@@ -280,9 +295,8 @@ class BatchVerifier:
                 left.append((s * w % R, b))
             for s, b in zip(dual.right.scalars, dual.right.bases):
                 right.append((s * w % R, b))
-        with self.timings.stage("device_msm"):
-            handle = self._msm_dispatch_pair(left, right, pads=pad_to)
-            points = self._collect_pair(handle)
+        handle = self._msm_dispatch_pair(left, right, pads=pad_to)
+        points = self._collect_pair(handle)
         return points[0], points[1]
 
     def _msm_dispatch_pair(self, left, right, pads=None, timings=None):
@@ -328,9 +342,10 @@ class BatchVerifier:
         affine coords, concatenated per group). Returns the async handle.
 
         timings: a StageTimings that gets the single-device forest
-        dispatch's parts (dispatch_plan: host_plan and the pin; the
-        dispatch's own, see msm_forest.dispatch_planned; dispatch_prefetch);
-        the stream passes its own, the bisection none."""
+        dispatch's parts (dispatch_plan: host_plan, with its plan_native
+        and plan_canonicalize, and the pin, plan_pin; the dispatch's own,
+        see msm_forest.dispatch_planned; dispatch_prefetch); the stream
+        passes its own, the bisection none."""
         self.msm_entries_dispatched += s_np.shape[0]
         if self.msm == "host":
             # exact host MSM (native C++ Pippenger), for orchestration
@@ -366,11 +381,11 @@ class BatchVerifier:
             return ("grouped", self._prefetch_d2h(arr))
         key = repr(tuple(sizes))
         with maybe_stage(timings, "dispatch_plan"):
-            plan = msm_forest.host_plan(s_np, sizes)
+            plan = msm_forest.host_plan(s_np, sizes, timings=timings)
             # pin the level/part-width signature per workload: random
             # weights drift widths across quantization boundaries batch to
             # batch, and each new signature is a new recording
-            with self._pin_lock:
+            with maybe_stage(timings, "plan_pin"), self._pin_lock:
                 old_pin = self._plan_pins.get(key)
                 plan, pin = msm_forest.pin_plan_widths(plan, old_pin)
                 if pin != old_pin:
@@ -496,25 +511,26 @@ class BatchVerifier:
         pre-pass doesn't apply). Called one batch AHEAD in verify_stream."""
         if not self.decomp:
             return None
-        groups = self._stream_groups(batch)
-        if groups is None:
-            return None
         from ..protocol.replay_native import CompiledReplay
 
-        futs = []
-        for program, idxs in groups:
-            if not program.n_points:
-                futs.append(None)
-                continue
-            xs = program.gather_point_xs([batch[i][0] for i in idxs])
-            ys = dispatch_y_batch(xs, self.device)
-            self.decomp_points_dispatched += xs.shape[0]
-            pre = self._prefetch_d2h(ys)
-            futs.append(executor.submit(
-                lambda p=pre, m=xs.shape[0]:
-                CompiledReplay.pack_ext_y(self._fetch(p), m)
-            ))
-        return futs
+        with self.timings.stage("decomp_dispatch"):
+            groups = self._stream_groups(batch)
+            if groups is None:
+                return None
+            futs = []
+            for program, idxs in groups:
+                if not program.n_points:
+                    futs.append(None)
+                    continue
+                xs = program.gather_point_xs([batch[i][0] for i in idxs])
+                ys = dispatch_y_batch(xs, self.device)
+                self.decomp_points_dispatched += xs.shape[0]
+                pre = self._prefetch_d2h(ys)
+                futs.append(executor.submit(
+                    lambda p=pre, m=xs.shape[0]:
+                    CompiledReplay.pack_ext_y(self._fetch(p), m)
+                ))
+            return futs
 
     def _fast_stream_dispatch(self, batch, pads, ext_y_futs=None):
         """VM raw fast path for a stream batch: replay with the per-proof
@@ -533,9 +549,11 @@ class BatchVerifier:
                 w = [weights[i] for i in idxs]
                 ext_y = None
                 if ext_y_futs is not None and ext_y_futs[gi] is not None:
-                    ext_y = ext_y_futs[gi].result()
+                    with self.timings.stage("decomp_wait"):
+                        ext_y = ext_y_futs[gi].result()
                 with self.timings.stage("host_replay"):
-                    sc, pt = program.replay_batch_raw(sub, w, ext_y=ext_y)
+                    sc, pt = program.replay_batch_raw(
+                        sub, w, ext_y=ext_y, timings=self.timings)
                 with self.timings.stage("host_assemble"):
                     garrs = program.batch_msm_arrays(sc, pt, len(sub))
                 for side in sides:
@@ -579,8 +597,9 @@ class BatchVerifier:
         return handle, pads
 
     def _collect_pair(self, handle):
-        """Wait for a dispatched MSM pair's window totals, exact host
-        fold."""
+        """Wait for a dispatched MSM pair's window totals (stage
+        msm_wait), exact host fold (msm_combine); in a localization both
+        fall inside its stage."""
         kind, arr = handle
         if kind == "host":
             return arr
@@ -590,7 +609,10 @@ class BatchVerifier:
             "sharded_forest": pmesh.combine_sharded_forest,
             "sharded_grouped": pmesh.combine_sharded_grouped,
         }[kind]
-        return combine(self._fetch(arr), 2)
+        with self.timings.stage("msm_wait"):
+            totals = self._fetch(arr)
+        with self.timings.stage("msm_combine"):
+            return combine(totals, 2)
 
     def _pairing_ok(self, left, right) -> bool:
         with self.timings.stage(f"{self.pairing}_pairing"):
@@ -615,13 +637,14 @@ class BatchVerifier:
             return BatchResult(True, n)
         if not localize:
             return BatchResult(False, n)
-        # localization: one padded size for all bisection subsets
-        max_entries = max(
-            sum(len(duals[i].left.scalars) for i in range(n)),
-            sum(len(duals[i].right.scalars) for i in range(n)),
-        )
-        pad_to = -(-max_entries // self.PAD_GRAN) * self.PAD_GRAN
-        failed = self._bisect(duals, list(range(n)), pad_to)
+        with self.timings.stage("localize"):
+            # one padded size for all bisection subsets
+            max_entries = max(
+                sum(len(duals[i].left.scalars) for i in range(n)),
+                sum(len(duals[i].right.scalars) for i in range(n)),
+            )
+            pad_to = -(-max_entries // self.PAD_GRAN) * self.PAD_GRAN
+            failed = self._bisect(duals, list(range(n)), pad_to)
         return BatchResult(False, n, failed)
 
     def verify_stream(self, batches, pad_to=None, localize=True):
@@ -659,7 +682,8 @@ class BatchVerifier:
 
         def result():
             fut, batch, duals = pending.popleft()
-            res = fut.result()
+            with self.timings.stage("finish_wait"):
+                res = fut.result()
             if spmd and localize and not res.ok:
                 res = self._localize(batch, duals, max(stream_pads))
             return res
@@ -730,8 +754,7 @@ class BatchVerifier:
             decomp_executor.shutdown(wait=True)
 
     def _finish_pipelined(self, batch, duals, pad, handle, localize):
-        with self.timings.stage("device_msm_collect"):
-            left, right = self._collect_pair(handle)
+        left, right = self._collect_pair(handle)
         n = len(batch)
         if self._pairing_ok(left, right):
             return BatchResult(True, n)
@@ -742,7 +765,7 @@ class BatchVerifier:
     def _localize(self, batch, duals, pad):
         """Bisect a failed stream batch. Serialized: replay/_bisect share
         the per-vk CompiledReplay programs."""
-        with self._finish_lock:
+        with self.timings.stage("localize"), self._finish_lock:
             if duals is None:
                 duals = self.replay(batch)
             return BatchResult(

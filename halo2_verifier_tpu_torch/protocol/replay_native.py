@@ -14,6 +14,7 @@ import ctypes
 import numpy as np
 
 from ..ops.constants import R
+from ..utils.metrics import maybe_stage
 from .kzg import DualMSM, MSMKZG, VerifyFailure
 from .trace import trace_verify
 
@@ -55,7 +56,7 @@ class CompiledReplay:
         self.n_aux = self.program.n_aux
 
     def replay_batch_raw(self, proofs_and_instances, weights=None,
-                         ext_y=None):
+                         ext_y=None, timings=None):
         """Run the VM; returns (scalars_bytes, points_bytes) raw buffers:
         scalars n * n_out * 32B canonical LE (weighted by the per-proof
         isolation weight when `weights` is given), points n * n_points *
@@ -65,6 +66,10 @@ class CompiledReplay:
         x^3+3 from the device sqrt pre-pass (ops/decomp.py) — the VM
         then checks y^2 == x^3+3 (~5 muls) instead of computing the
         ~381-mul Fermat sqrt per point.
+
+        timings: an optional utils.metrics.StageTimings whose stage
+        `replay_vm` times the native call alone; the staging of the
+        inputs and the copies of the outputs around it are the caller's.
 
         Raises MalformedProof (listing indices) if any proof stream is
         invalid — the same outcome class as the Python replay raising on
@@ -106,12 +111,13 @@ class CompiledReplay:
         aux_c = ctypes.cast(
             (ctypes.c_char * len(aux_buf)).from_buffer(aux_buf),
             ctypes.c_char_p)
-        bad = lib.h2v_replay_batch(
-            bytes(self.blob), proof_c, stride,
-            lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-            aux_c, aux_stride, n, wbuf, out_scalars, out_points,
-            status, 2, ext_y,
-        )
+        with maybe_stage(timings, "replay_vm"):
+            bad = lib.h2v_replay_batch(
+                bytes(self.blob), proof_c, stride,
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                aux_c, aux_stride, n, wbuf, out_scalars, out_points,
+                status, 2, ext_y,
+            )
         if bad < 0:
             raise RuntimeError("replay VM rejected the program")
         if bad:
@@ -226,10 +232,10 @@ class CompiledReplay:
             out[side] = (S, X, Y)
         return out
 
-    def replay_batch(self, proofs_and_instances):
+    def replay_batch(self, proofs_and_instances, timings=None):
         """[(proof_bytes, instances)] -> list of DualMSM (exact parity with
-        the Python replay's accumulators)."""
-        sc, pt = self.replay_batch_raw(proofs_and_instances)
+        the Python replay's accumulators). timings: as replay_batch_raw's."""
+        sc, pt = self.replay_batch_raw(proofs_and_instances, timings=timings)
         n = len(proofs_and_instances)
         duals = []
         for i in range(n):
