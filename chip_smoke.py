@@ -43,7 +43,8 @@ Phases, one output line each (JSON unless noted):
    (packed_parity): four pinned batches through one slot of recordings,
    a re-pin among them, each batch's totals bit-equal to the flat
    chain's and its launches, counted through the replays, the flat
-   chain's;
+   chain's and one point add more (the deepest part's scatter lanes),
+   each recording's graph nodes its launches and one copy;
 5. the main paths, each with every kernel's launch count set to 0 just
    before and read just after, and each refused if a kernel outside its
    list launched or one on it did not: BatchVerifier.verify_stream over
@@ -164,9 +165,10 @@ SCAN_BATCHES = {"u16": 8, "f8": 4}
 K9_BATCH = 256                       # bench.py run_extras' defaults
 K9_BATCHES = 7                       # (H2V_BENCH_EXTRA_BATCH, _BATCHES)
 FOREST_KERNELS = ("forest_frontier0", "point_add", "sqrt_principal")
-# the forest's launches per main-path batch, and a piece of each kernel's
-# name in a profiler trace
-FOREST_PER_BATCH = {"forest_frontier0": 1, "point_add": 30}
+# the forest's launches per main-path batch on the packed dispatch (9
+# levels, the deepest part's scatter, 7 folds, 14 Horner steps), and a
+# piece of each kernel's name in a profiler trace
+FOREST_PER_BATCH = {"forest_frontier0": 1, "point_add": 31}
 FOREST_TRACE_NAMES = {"forest_frontier0": "frontier0_kernel",
                       "point_add": "point_add_kernel<h2v::Limbs16>"}
 # the forest dispatch's parts, as the orchestrator times them inside
@@ -984,9 +986,12 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
     new recording replaces the first), another random batch, and phase
     4's batch again (a replay, its pin covering it). Each batch's window
     totals bit-equal to the flat chain's on the same pinned plan, its
-    launches and lanes (the packed ones counted through the replays)
-    equal to the flat chain's; the recordings' private pool and the time
-    of each recording and replay."""
+    lanes (the packed ones counted through the replays) equal to the flat
+    chain's and its launches too, but for the packed chain's one more
+    point add (the deepest part's scatter lanes); each recording's graph
+    nodes are its package launches and the grid's one copy; the
+    recordings' private pool and the time of each recording and
+    replay."""
     from halo2_verifier_tpu_torch.ops.constants import R
     from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
     from halo2_verifier_tpu_torch.utils.metrics import StageTimings
@@ -1010,6 +1015,7 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
         flat = msm_forest.dispatch_planned(x, y, plan, dev)
         torch.cuda.synchronize()
         want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
+        want[0]["point_add"] += 1
         kernels.reset_launches()
         timings = StageTimings()
         t0 = time.perf_counter()
@@ -1021,16 +1027,20 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
         equal = bool(torch.equal(got, flat))
         err = max(err, max_abs_err(torch, got, flat))
         same_launches = (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
+        nodes, tally = recs.counts("parity")
+        no_glue = nodes == {"kernel": sum(n for n, _ in tally.values()),
+                            "memcpy": 1, "memset": 0, "other": 0}
         rows.append({
             "batch": name, "level_widths": [int(plan["point_idx0"].shape[0])]
             + [int(iL.shape[0]) for iL, _ in plan["levels"]],
             "totals_equal_flat": equal, "launches_equal_flat": same_launches,
+            "graph_nodes": nodes, "graph_nodes_are_launches": no_glue,
             "launches": {k: v for k, v in want[0].items() if v},
             "recorded": "dispatch_record" in timings.totals,
             "ms": round(wall * 1e3, 3),
             "record_ms": round(timings.totals.get("dispatch_record", 0)
                                * 1e3, 3)})
-        if not (equal and same_launches):
+        if not (equal and same_launches and no_glue):
             raise AssertionError(f"packed_parity: batch {name} differs from "
                                  "the flat chain")
     if recs.replays < 1 or recs.replaced < 1:

@@ -145,10 +145,55 @@ __device__ __forceinline__ void add_rolled(Fe u0, Fe u1, Fe u2, Fe v0,
     }
 }
 
+// Montgomery one (R mod q) as 32-bit words: the projective identity's Y.
+__constant__ uint32_t MONT_ONE_FQ[8] = {
+    0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
+    0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+
+// A launch's scatter lanes (n of them, after the width output lanes):
+// lane j copies the point p[:, pos[j]] to g[:, key[j]] (rows wg apart),
+// its Y set to R where Y = Z = 0, the empty-bucket patch of
+// ops/msm_forest.py _bucket_grid. n = 0: no scatter lanes.
+template <class L>
+struct PartScatter {
+    const int32_t* pos;
+    const int32_t* key;
+    typename L::T* gx;
+    typename L::T* gy;
+    typename L::T* gz;
+    uint32_t n;
+    uint32_t wg;
+};
+
+template <class L>
+__device__ __forceinline__ void scatter_lane(const typename L::T* px,
+                                             const typename L::T* py,
+                                             const typename L::T* pz,
+                                             uint32_t wp,
+                                             const PartScatter<L>& sc,
+                                             uint32_t j) {
+    uint32_t s = (uint32_t)sc.pos[j];
+    uint32_t k = (uint32_t)sc.key[j];
+    Fe X = L::load(px + s, wp);
+    Fe Y = L::load(py + s, wp);
+    Fe Z = L::load(pz + s, wp);
+    uint32_t nz = 0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) nz |= Y.w[w] | Z.w[w];
+    if (!nz) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) Y.w[w] = MONT_ONE_FQ[w];
+    }
+    L::store(sc.gx + k, sc.wg, X);
+    L::store(sc.gy + k, sc.wg, Y);
+    L::store(sc.gz + k, sc.wg, Z);
+}
+
 // out[i] = mask[i] ? P[i] + Q[i] : P[i], P[i] = p[:, il[i]] (or p[:, i]),
 // Q[i] = q[:, ir[i]] (or q[:, i]); one thread per output lane, every
-// intermediate in registers. A masked-out lane never reads Q. L is the
-// limb format (Limbs16 or Limbs8). Widths and indices are 32-bit: every
+// intermediate in registers. A masked-out lane never reads Q. Lanes past
+// the width are the scatter lanes of sc, which read p. L is the limb
+// format (Limbs16 or Limbs8). Widths and indices are 32-bit: every
 // tensor has fewer than 2^31 elements (ops/kernels.py checks).
 template <class L>
 __global__ void __launch_bounds__(AddShape<L>::kThreads,
@@ -164,9 +209,13 @@ point_add_kernel(const typename L::T* __restrict__ px,
                  const uint8_t* __restrict__ mask,
                  typename L::T* __restrict__ ox,
                  typename L::T* __restrict__ oy,
-                 typename L::T* __restrict__ oz, uint32_t width) {
+                 typename L::T* __restrict__ oz, uint32_t width,
+                 const PartScatter<L> sc) {
     uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= width) return;
+    if (i >= width) {
+        if (i - width < sc.n) scatter_lane<L>(px, py, pz, wp, sc, i - width);
+        return;
+    }
     uint32_t l = il ? (uint32_t)il[i] : i;
     Fe X1 = L::load(px + l, wp);
     Fe Y1 = L::load(py + l, wp);
@@ -196,12 +245,13 @@ int launch_point_add(const typename L::T* px, const typename L::T* py,
                      const int32_t* il, const int32_t* ir,
                      const uint8_t* mask, typename L::T* ox,
                      typename L::T* oy, typename L::T* oz, long long width,
-                     void* stream) {
+                     void* stream, const PartScatter<L>& sc = {}) {
     constexpr int threads = AddShape<L>::kThreads;
-    unsigned int blocks = (unsigned int)((width + threads - 1) / threads);
+    long long lanes = width + sc.n;
+    unsigned int blocks = (unsigned int)((lanes + threads - 1) / threads);
     point_add_kernel<L><<<blocks, threads, 0, (cudaStream_t)stream>>>(
         px, py, pz, (uint32_t)wp, qx, qy, qz, (uint32_t)wq, il, ir, mask, ox,
-        oy, oz, (uint32_t)width);
+        oy, oz, (uint32_t)width, sc);
     return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,22 @@
 // (chip_smoke.py) it runs at 39-42 % of its bound: 0.1306 ms on the
 // forest's widest launch (266,240 lanes, 38.6 % of 0.0504 ms) and 0.2350
 // ms on the scan's (532,480 lanes, 41.7 % of 0.0979 ms).
+//
+// Scatter lanes (h2v_point_add_scatter, the packed forest chain of
+// ops/msm_forest.py packed_chain): a forest level's launch, which reads
+// frontier f_l, also writes level l's finished part into the bucket grid.
+// Lanes past the add width each copy one entry, g[:, key[j]] =
+// f_l[:, pos[j]] with Y := R where Y = Z = 0 (point.cuh scatter_lane), so
+// the chain needs no gather, concatenation or scatter of its own; the
+// deepest part, read from the last frontier, is a launch of scatter
+// lanes alone. Keys repeat only at the grid's last slot, the dump that
+// takes the identity padding and that nothing reads, so the lanes'
+// unordered writes there do not matter. Bound: a scatter lane moves 384 B
+// (a 192 B point read by index, 192 B written by key) and does no
+// multiply-add; a main-path batch (random scalars in groups of 1,024 and
+// 15,616) has ~31,000 of them over its ten parts against ~626,000 add
+// lanes: ~12 MB, ~4 us at the card's 3.35 TB/s, spread over launches
+// whose add lanes take longer.
 
 #include "point.cuh"
 
@@ -55,4 +71,53 @@ extern "C" int h2v_point_add(const int32_t* px, const int32_t* py,
     return h2v::launch_point_add<h2v::Limbs16>(
         px, py, pz, wp, qx, qy, qz, wq, il, ir, mask, ox, oy, oz, width,
         stream);
+}
+
+// One forest level of the packed chain with its finished part: width add
+// lanes out[i] = f[:, il[i]] + f[:, ir[i]] (width 0: none, il and ir
+// unread) and nscat scatter lanes g[:, key[j]] = f[:, pos[j]] (Y := R
+// where Y = Z = 0) into the (16, wg) grid rows gx, gy, gz.
+extern "C" int h2v_point_add_scatter(const int32_t* fx, const int32_t* fy,
+                                     const int32_t* fz, long long wf,
+                                     const int32_t* il, const int32_t* ir,
+                                     int32_t* ox, int32_t* oy, int32_t* oz,
+                                     long long width, const int32_t* pos,
+                                     const int32_t* key, long long nscat,
+                                     int32_t* gx, int32_t* gy, int32_t* gz,
+                                     long long wg, void* stream) {
+    h2v::PartScatter<h2v::Limbs16> sc = {pos, key, gx, gy, gz,
+                                         (uint32_t)nscat, (uint32_t)wg};
+    return h2v::launch_point_add<h2v::Limbs16>(
+        fx, fy, fz, wf, fx, fy, fz, wf, il, ir, nullptr, ox, oy, oz, width,
+        stream, sc);
+}
+
+// The nodes of the graph being captured on `stream`, by type: counts[0]
+// kernels, counts[1] copies (memcpy), counts[2] memsets, counts[3] any
+// other. Fails (cudaErrorIllegalState) if no capture is running there.
+extern "C" int h2v_capture_nodes(void* stream, long long* counts) {
+    cudaStreamCaptureStatus status;
+    unsigned long long id = 0;
+    cudaGraph_t graph = nullptr;
+    cudaError_t rc =
+        cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, &id, &graph);
+    if (rc != cudaSuccess) return (int)rc;
+    if (status != cudaStreamCaptureStatusActive || graph == nullptr)
+        return (int)cudaErrorIllegalState;
+    size_t n = 0;
+    rc = cudaGraphGetNodes(graph, nullptr, &n);
+    if (rc != cudaSuccess) return (int)rc;
+    cudaGraphNode_t* nodes = new cudaGraphNode_t[n ? n : 1];
+    rc = cudaGraphGetNodes(graph, nodes, &n);
+    for (int k = 0; k < 4; ++k) counts[k] = 0;
+    for (size_t i = 0; rc == cudaSuccess && i < n; ++i) {
+        cudaGraphNodeType type;
+        rc = cudaGraphNodeGetType(nodes[i], &type);
+        counts[type == cudaGraphNodeTypeKernel   ? 0
+               : type == cudaGraphNodeTypeMemcpy ? 1
+               : type == cudaGraphNodeTypeMemset ? 2
+                                                 : 3] += 1;
+    }
+    delete[] nodes;
+    return (int)rc;
 }

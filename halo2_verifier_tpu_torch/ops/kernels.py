@@ -290,7 +290,12 @@ SIGNATURES = {
         "h2v_forest_frontier0": [_VP, _VP, _LL, _VP] + [_VP] * 3
         + [_LL, _VP, _VP],
     },
-    "point_add.cu": {"h2v_point_add": _POINT_ADD_ARGS},
+    "point_add.cu": {
+        "h2v_point_add": _POINT_ADD_ARGS,
+        "h2v_point_add_scatter": [_VP, _VP, _VP, _LL, _VP, _VP]
+        + [_VP, _VP, _VP, _LL] + [_VP, _VP, _LL] + [_VP, _VP, _VP, _LL, _VP],
+        "h2v_capture_nodes": [_VP, _VP],
+    },
     "point_double.cu": {"h2v_point_double": [_VP] * 6 + [_LL, _VP]},
     "mont_mul8.cu": {"h2v_mont_mul8": [_VP, _VP, _VP, _LL, _CI, _VP]},
     "point_add8.cu": {"h2v_point_add8": _POINT_ADD_ARGS},
@@ -504,6 +509,69 @@ def point_add(p, q, mask=None, iL=None, iR=None):
     Returns a (X, Y, Z) tuple of (16, B) views into one (3, 16, B)
     tensor."""
     return _point_add("point_add", "u16", "point_add.cu", p, q, mask, iL, iR)
+
+
+def point_add_scatter(f, iL, iR, pos, keys, grid):
+    """K2 with scatter lanes, one launch: a forest level's adds out[i] =
+    f[:, iL[i]] + f[:, iR[i]] (iL, iR None: no add lanes) and its
+    finished part written into the bucket grid, grid[:, keys[j]] =
+    f[:, pos[j]] with Y := R mod q where Y = Z = 0. f: (X, Y, Z) tuple of
+    (16, W) int32 Montgomery limbs; grid: (X, Y, Z) tuple of (16, G) int32
+    rows on the same card, written in place; iL, iR, pos, keys: int32
+    indices, in range (the caller's contract: the forest validates its
+    plan, keys included, on the host). Returns the level's (X, Y, Z), (16,
+    B) views into one (3, 16, B) tensor (B = 0 without add lanes). Counted
+    as a point_add launch of B lanes, the add alone (the scatter lanes add
+    nothing), with point_add's arguments for those lanes."""
+    name = "point_add_scatter"
+    _check_limbs(name, "u16", *f, *grid)
+    wf, wg = f[0].shape[1], grid[0].shape[1]
+    if any(c.shape[1] != wf for c in f) or any(c.shape[1] != wg
+                                               for c in grid):
+        raise ValueError(f"{name}: coordinate widths differ")
+    if (iL is None) != (iR is None):
+        raise ValueError(f"{name}: iL and iR go together")
+    b = 0 if iL is None else iL.shape[0]
+    s = pos.shape[0]
+    for side, idx, w in (("iL", iL, b), ("iR", iR, b), ("pos", pos, s),
+                         ("keys", keys, s)):
+        if idx is None:
+            continue
+        if (idx.dtype != torch.int32 or idx.dim() != 1 or idx.shape[0] != w
+                or idx.device != f[0].device or not idx.is_contiguous()):
+            raise ValueError(f"{name}: {side} must be a contiguous ({w},) "
+                             "int32 tensor on the card")
+    if NLIMBS * b >= MAX_ELEMENTS or b + s >= MAX_ELEMENTS:
+        raise ValueError(f"{name}: 2^31 or more output elements or lanes")
+    out = torch.empty((3, NLIMBS, b), dtype=torch.int32, device=f[0].device)
+    if b + s == 0:
+        return out[0], out[1], out[2]
+    lib = _lib("point_add.cu")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(f[0].device):
+        rc = lib.h2v_point_add_scatter(
+            *(c.data_ptr() for c in f), wf, ptr(iL), ptr(iR),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b,
+            pos.data_ptr(), keys.data_ptr(), s,
+            *(c.data_ptr() for c in grid), wg, _stream(f[0].device))
+    _raise_on(rc, name)
+    _count("point_add", b, (f, f, None, iL, iR))
+    return out[0], out[1], out[2]
+
+
+def capture_nodes(device) -> dict:
+    """The nodes of the CUDA graph being captured on `device`'s current
+    stream, by type: {"kernel", "memcpy", "memset", "other": count}.
+    Raises if no capture runs there."""
+    counts = (ctypes.c_longlong * 4)()
+    lib = _lib("point_add.cu")
+    with torch.cuda.device(device):
+        rc = lib.h2v_capture_nodes(_stream(device), counts)
+    _raise_on(rc, "capture_nodes")
+    return dict(zip(("kernel", "memcpy", "memset", "other"), counts))
 
 
 def point_add8(p, q, mask=None, iL=None, iR=None):

@@ -26,10 +26,19 @@ step is ONE launch of the point-add kernel with the gather fused in (the
 kernel reads f[:, iL[i]] and f[:, iR[i]] itself).
 dispatch_planned_fuse3 ("packed", the reference's accelerator dispatch)
 writes every operand of a pinned plan into one int32 buffer at the
-reference's offsets, uploads it with one copy and runs the same chain on
-views of it; on the card the chain is recorded once per pinned signature
-as a CUDA graph and then only replayed (ForestRecordings), the
-counterpart of the reference's compiled stage programs.
+reference's offsets, uploads it with one copy and runs the chain on views
+of it (packed_chain); on the card the chain is recorded once per pinned
+signature as a CUDA graph and then only replayed (ForestRecordings), the
+counterpart of the reference's compiled stage programs. The recorded
+chain holds only the package's kernels and one copy, no PyTorch kernel:
+the grid's copy of a cached identity grid, the frontier launch, one
+point-add launch per level that also writes the level's finished part
+into the bucket grid (scatter lanes past its add lanes), one launch of
+the deepest part's scatter lanes, 7 folds and 14 Horner steps that read
+their operands by cached indices; a k=14 batch's recording is 32 kernel
+nodes and one copy. The flat chain, the mesh and the scan bucket phase
+keep the gathers, the grid's scatter and the leaf gather
+(forest_buckets, _bucket_grid, plane_reduce).
 
 Output: one stacked (3, NLIMBS, groups*NUM_WINDOWS) Montgomery projective
 window-totals tensor, combined on the host by
@@ -484,6 +493,16 @@ def _check_plan(plan):
             raise ValueError("forest plan index out of range")
 
 
+def _check_keys(plan):
+    """Every scatter key must name a slot of the (tw * NUM_BUCKETS +
+    1)-slot grid: the packed chain's scatter lanes write by key without a
+    bounds check."""
+    dump = plan["tw"] * NUM_BUCKETS
+    for _lvl, _pos, keys in plan["finished"]:
+        if keys.size and (int(keys.min()) < 0 or int(keys.max()) > dump):
+            raise ValueError("forest plan scatter key out of range")
+
+
 def _upload(a, device, dtype=I32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(dtype)
 
@@ -725,34 +744,151 @@ def pack_operands(x_np, y_np, plan, layout, out):
         off += keys.shape[0]
 
 
+_STATIC = {}
+
+
+def _static_on(name: str, n: int, device, make):
+    """make(n), a CPU tensor, on `device`, made once per (name, n,
+    device): a recorded chain reads it, so it must exist before the
+    recording starts (the slot's eager first batch makes it)."""
+    key = (name, n, str(device))
+    t = _STATIC.get(key)
+    if t is None:
+        t = _STATIC[key] = make(n).to(device)
+    return t
+
+
+def _identity_grid(tw: int):
+    """(3, NLIMBS, tw * NUM_BUCKETS + 1) int32 projective identities
+    (0 : R : 0): the bucket grid before any part is written, the dump slot
+    last."""
+    grid = torch.zeros((3, NLIMBS, tw * NUM_BUCKETS + 1), dtype=I32)
+    grid[1] = FQ.col("r", "cpu").to(I32)
+    return grid
+
+
+def _leaf_pairs(tw: int):
+    """The first fold's operands, (2, tw * WINDOW_BITS * 64) int32: the
+    even and odd entries of _bucket_leaf_idx(tw), so lane i adds the grid's
+    leaves 2i and 2i + 1 of the bit-plane layout."""
+    leaf = _bucket_leaf_idx(tw)
+    return torch.from_numpy(np.stack([leaf[0::2], leaf[1::2]]))
+
+
+def _pair_idx(width: int):
+    """A later fold's operands, (2, width // 2) int32: 2i and 2i + 1."""
+    return torch.arange(width, dtype=I32).view(-1, 2).t().contiguous()
+
+
+def _horner_idx(tw: int):
+    """(WINDOW_BITS, tw) int32: row b holds plane b of every window,
+    w * WINDOW_BITS + b, in the (w, b)-major plane sums."""
+    return (torch.arange(tw, dtype=I32) * WINDOW_BITS
+            + torch.arange(WINDOW_BITS, dtype=I32)[:, None]).contiguous()
+
+
+def scatter_part_plain(f, pos, keys, grid):
+    """Plain version of a launch's scatter lanes: grid[:, keys[j]] =
+    f[:, pos[j]] with Y := R where Y = Z = 0 (_bucket_grid's patch), in
+    place; the gather and scatter of forest_buckets and _bucket_grid, one
+    part at a time."""
+    part = _gather(f, pos.to(I64))
+    empty = fm.is_zero(part[1]) & fm.is_zero(part[2])
+    one = FQ.col("r", part[1].device).to(part[1].dtype)
+    part = (part[0], torch.where(empty.unsqueeze(0), one, part[1]), part[2])
+    k = keys.to(I64)
+    for g, c in zip(grid, part):
+        g[:, k] = c
+
+
+def level_scatter(f, iL, iR, pos, keys, grid):
+    """One forest level and the finished part read from its input
+    frontier f, in one launch for CUDA tensors (kernels.point_add_scatter:
+    add lanes, then scatter lanes into `grid`, in place), the plain
+    versions for CPU tensors. iL, iR None: the part alone (the deepest).
+    Returns the next frontier, or None without add lanes."""
+    if f[0].is_cuda:
+        out = kernels.point_add_scatter(f, iL, iR, pos, keys, grid)
+        return None if iL is None else out
+    scatter_part_plain(f, pos, keys, grid)
+    return None if iL is None else curve.masked_add_plain(f, f, iL=iL,
+                                                          iR=iR)
+
+
+def _stacked(t):
+    """(X, Y, Z) -> (3, NLIMBS, w). A kernel's output is three rows of one
+    such tensor (kernels.point_add), which is returned as it is; plain
+    outputs are stacked."""
+    base = t[0]._base
+    if (base is not None and base.shape == (3,) + tuple(t[0].shape)
+            and all(c._base is base and c.data_ptr() == base[k].data_ptr()
+                    for k, c in enumerate(t))):
+        return base
+    return torch.stack(t)
+
+
+def _horner_indexed(planes, tw):
+    """_horner_bits with the planes read by cached indices: the first
+    step doubles each window's top plane by index (no gathered start),
+    every step adds plane b by index; 2 x (WINDOW_BITS - 1) point-add
+    launches, bit-equal to _horner_bits'."""
+    idx = _static_on("horner", tw, planes[0].device, _horner_idx)
+    top = idx[WINDOW_BITS - 1]
+    t = curve.masked_add(planes, planes, iL=top, iR=top)
+    for b in range(WINDOW_BITS - 2, -1, -1):
+        if b < WINDOW_BITS - 2:
+            t = curve.add(t, t)
+        t = curve.masked_add(t, planes, iR=idx[b])
+    return _stacked(t)
+
+
+def _plane_reduce_indexed(grid, tw):
+    """plane_reduce on the (X, Y, Z) rows of the (tw * NUM_BUCKETS +
+    1)-slot grid with every index static: the first fold adds the grid's
+    leaf pairs (the leaf gather and the fold in one launch), the 6 later
+    folds lanes 2i and 2i + 1, then _horner_indexed; bit-equal to
+    plane_reduce's."""
+    dev = grid[0].device
+    iL, iR = _static_on("leaf_pairs", tw, dev, _leaf_pairs)
+    t = curve.masked_add(grid, grid, iL=iL, iR=iR)
+    while t[0].shape[1] > tw * WINDOW_BITS:
+        iL, iR = _static_on("pairs", t[0].shape[1], dev, _pair_idx)
+        t = curve.masked_add(t, t, iL=iL, iR=iR)
+    return _horner_indexed(t, tw)
+
+
 def packed_chain(buf, layout):
     """The forest and its bucket phase on views of the packed (total,)
-    int32 buffer, on any device: the level-0 frontier; per level, its
-    finished part gathered before the level's add (the order of the
-    reference's _stage_levels3_p); the deepest part; the grid scatter, the
-    bit-plane trees and the Horner fold. Returns the (3, NLIMBS, tw)
-    window totals, bit-equal to dispatch_planned's on the same plan.
+    int32 buffer, on any device: the grid, a copy of the identity grid;
+    the level-0 frontier; per level one launch that adds the level and
+    writes the finished part read from its input frontier into the grid
+    (level_scatter); the deepest part's launch; then
+    _plane_reduce_indexed. Returns the (3, NLIMBS, tw) window totals,
+    bit-equal to dispatch_planned's on the same plan.
 
-    Each level hands its iL/iR slices of the buffer straight to the
-    point-add kernel, which reads its operands by index, so no gathered
-    copy is made: the reference's choice between one and two XLA gathers
-    per level (concat_gather, H2V_LEVEL_GATHER) has nothing to decide
-    here."""
+    On the card that is L + 23 kernel launches for L levels (32 on the
+    k=14 main path) and one copy, with no PyTorch kernel between them
+    (ForestRecordings counts a recording's nodes):
+    every index is a slice of the buffer or cached on the device, so the
+    point-add kernel reads its operands by index and no gathered copy is
+    made (the reference's choice between one and two XLA gathers per
+    level, concat_gather or H2V_LEVEL_GATHER, has nothing to decide
+    here); the scatter keys stay int32."""
     o = NLIMBS * layout.n_pad
+    grid = tuple(_static_on("identity_grid", layout.tw, buf.device,
+                            _identity_grid).clone())
     f = frontier0(buf[:o].view(NLIMBS, layout.n_pad),
                   buf[o:2 * o].view(NLIMBS, layout.n_pad),
                   buf[2 * o:2 * o + layout.w0])
-    gathered = []
-    for (oL, oR, w), (oP, wp) in zip(layout.levels, layout.parts):
-        gathered.append(_gather(f, buf[oP:oP + wp]))
-        f = curve.masked_add(f, f, iL=buf[oL:oL + w], iR=buf[oR:oR + w])
-    oP, wp = layout.parts[-1]
-    gathered.append(_gather(f, buf[oP:oP + wp]))
-    fin = tuple(
-        torch.cat([g[c] for g in gathered], dim=1) for c in range(3)
-    )
-    oS, ws = layout.scatter
-    return _bucket_phase(fin, buf[oS:oS + ws].to(I64), layout.tw)
+    oS = layout.scatter[0]
+    levels = layout.levels + ((None, None, 0),)
+    for (oL, oR, w), (oP, wp) in zip(levels, layout.parts):
+        iL = iR = None
+        if oL is not None:
+            iL, iR = buf[oL:oL + w], buf[oR:oR + w]
+        f = level_scatter(f, iL, iR, buf[oP:oP + wp], buf[oS:oS + wp], grid)
+        oS += wp
+    return _plane_reduce_indexed(grid, layout.tw)
 
 
 def _pool_bytes(graph) -> int:
@@ -766,7 +902,8 @@ class _Recording:
     """One recorded chain: its layout, the static packed input on the
     card, two pinned staging buffers (the stream keeps two batches in
     flight) with the event after each one's copy, and once recorded the
-    CUDA graph, its static output and the launches one replay makes."""
+    CUDA graph, its static output, the launches one replay makes and the
+    graph's nodes by type."""
 
     def __init__(self, layout, device):
         self.layout = layout
@@ -779,6 +916,7 @@ class _Recording:
         self.graph = None
         self.out = None
         self.launches = None
+        self.nodes = None
         self.pool_bytes = 0
 
 
@@ -805,7 +943,10 @@ class ForestRecordings:
 
     Counters: recorded (recordings made), replaced (recordings a new
     layout freed), evicted (recordings freed for a new slot), replays;
-    pool_bytes() sums the live recordings' private memory pools."""
+    pool_bytes() sums the live recordings' private memory pools;
+    counts(slot) gives a recording's graph nodes by type, read from the
+    captured graph, beside the package launches one replay makes: kernel
+    nodes beyond those launches are PyTorch kernels left in the chain."""
 
     def __init__(self, max_slots: int = 4):
         if max_slots < 1:
@@ -821,6 +962,14 @@ class ForestRecordings:
     def pool_bytes(self) -> int:
         with self._lock:
             return sum(r.pool_bytes for r in self._slots.values())
+
+    def counts(self, slot):
+        """(nodes, launches) of the slot's recording: its graph's nodes by
+        type (kernels.capture_nodes) and {kernel: (launches, lanes)} of one
+        replay."""
+        with self._lock:
+            rec = self._slots[slot]
+            return dict(rec.nodes), dict(rec.launches)
 
     def _free(self, slot):
         """Drop a slot's recording once its replays and copies are done."""
@@ -872,7 +1021,8 @@ class ForestRecordings:
     def _record(self, rec):
         """Capture the chain on the recording's static input, on a side
         stream that waits for the work queued before it; the wrappers'
-        launches are tallied for count_replay, not counted."""
+        launches are tallied for count_replay, not counted, and the
+        graph's nodes are read before the capture ends."""
         dev = rec.device
         stream = torch.cuda.Stream(dev)
         # as torch.cuda.graph does: nothing queued before the capture is
@@ -884,6 +1034,7 @@ class ForestRecordings:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = packed_chain(rec.buf, rec.layout)
+                nodes = kernels.capture_nodes(dev)
             except BaseException:
                 try:
                     graph.capture_end()
@@ -893,6 +1044,7 @@ class ForestRecordings:
             graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
         rec.graph, rec.out, rec.launches = graph, out, dict(tally)
+        rec.nodes = nodes
         rec.pool_bytes = _pool_bytes(graph)
         self.recorded += 1
 
@@ -926,6 +1078,7 @@ def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
         return dispatch_planned(x_np, y_np, plan, device, timings)
     with maybe_stage(timings, "dispatch_check"):
         _check_plan(plan)
+        _check_keys(plan)
     layout = packed_layout(plan)
     device = torch.device(device)
     if device.type != "cuda":

@@ -104,6 +104,57 @@ def test_point_add_kernel_matches_plain(cuda):
     assert aff[:256] == base and aff[512:] == [None] * 8
 
 
+def test_point_add_scatter_matches_plain(cuda):
+    """K2 with scatter lanes against its plain versions: the add lanes
+    equal masked_add_plain's, and the scatter lanes write the grid as
+    scatter_part_plain does, (0, 0, 0) entries patched to (0 : R : 0),
+    identities and duplicate dump keys included (the dump slot is left
+    out of the comparison); then the scatter lanes alone (the deepest
+    part's launch), one more point-add launch of no lanes."""
+    base = _points(256)
+    pool = base + [hc.g1_neg(p) for p in base] + [None] * 8
+    src = _projective(pool, cuda)
+    src = tuple(c.clone() for c in src)
+    for c in src:
+        c[:, 100:104] = 0                                # (0, 0, 0)
+    n = len(pool)
+    g = torch.Generator().manual_seed(9)
+    iL = torch.randint(0, n, (2048,), generator=g, dtype=torch.int32)
+    iR = torch.randint(0, n, (2048,), generator=g, dtype=torch.int32)
+    tw = 4
+    dump = tw * msm_forest.NUM_BUCKETS
+    pos = torch.randint(0, n, (768,), generator=g, dtype=torch.int32)
+    pos[:8] = 512 + torch.arange(8, dtype=torch.int32)   # identities
+    pos[8:12] = 100 + torch.arange(4, dtype=torch.int32)
+    keys = torch.randperm(dump, generator=g)[:768].to(torch.int32)
+    keys[700:] = dump                                    # identity padding
+    iL, iR, pos, keys = (t.to(cuda) for t in (iL, iR, pos, keys))
+    grid0 = msm_forest._identity_grid(tw)
+    grid = grid0.clone().to(cuda)
+    want_grid = grid0.clone()
+    kernels.reset_launches()
+    got = kernels.point_add_scatter(src, iL, iR, pos, keys,
+                                    (grid[0], grid[1], grid[2]))
+    torch.cuda.synchronize()
+    want = curve.masked_add_plain(src, src, iL=iL, iR=iR)
+    assert all(torch.equal(o, w) for o, w in zip(got, want))
+    cpu = tuple(c.cpu() for c in src)
+    msm_forest.scatter_part_plain(cpu, pos.cpu(), keys.cpu(),
+                                  (want_grid[0], want_grid[1], want_grid[2]))
+    assert torch.equal(grid.cpu()[:, :, :dump], want_grid[:, :, :dump])
+    patched = grid.cpu()[:, :, keys[8:12].cpu().long()]
+    assert torch.equal(patched, grid0[:, :, :4])         # (0 : R : 0)
+    assert (kernels.LAUNCHES["point_add"], kernels.LANES["point_add"]) == (
+        1, 2048)
+    out = kernels.point_add_scatter(src, None, None, pos[:64], keys[:64],
+                                    (grid[0], grid[1], grid[2]))
+    torch.cuda.synchronize()
+    assert out[0].shape == (16, 0)
+    assert torch.equal(grid.cpu()[:, :, :dump], want_grid[:, :, :dump])
+    assert (kernels.LAUNCHES["point_add"], kernels.LANES["point_add"]) == (
+        2, 2048)
+
+
 def _to8(p):
     """A (16, B) int32 point or element on the card, re-limbed to
     (32, B) float32."""
@@ -385,45 +436,66 @@ def _forest_case(pts, scalars, sizes):
 
 
 def test_packed_replays_equal_flat_chain(cuda):
-    """Four batches of one workload through one slot of the packed
-    dispatch's recordings: two narrow batches (the first runs eagerly and
-    is recorded, the second replays), then two random ones (the first
-    outgrows the pin: a new recording replaces the old). Each batch's
-    window totals are bit-equal to the flat chain's on the same pinned
-    plan, and its launches, counted through the replays, are the flat
-    chain's."""
+    """Four batches of one pinned signature through one slot of the packed
+    dispatch's recordings: the first runs eagerly and is recorded, the
+    other three replay. One is narrow (128-bit scalars: half the buckets
+    empty, half the lanes identity padding up to the pin), one has zero
+    scalars, and two hold identity points. Each batch's window totals are
+    bit-equal to the flat chain's
+    on the same plan, on the card and on the CPU, and to the host MSM;
+    its adds and add lanes, counted through the replays, are the flat
+    chain's, in one launch more (the deepest part's scatter lanes); and
+    the recording's graph holds the package's launches and one copy (the
+    grid's identities), so no PyTorch kernel is left in the chain."""
     pts = _points(600)
+    holes = [None if i % 7 == 3 else p for i, p in enumerate(pts)]
     rng = np.random.default_rng(4)
-    small = [1 + i for i in range(600)]
-    sets = [small, small[::-1]] + [
-        [int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
-        for _ in range(2)]
-    recs = msm_forest.ForestRecordings()
+    sets = [[int.from_bytes(rng.bytes(32), "little") % R for _ in pts]
+            for _ in range(4)]
+    cases = [(holes, sets[0]),
+             (pts, [s >> 128 for s in sets[1]]),
+             (holes, [0 if i % 5 == 2 else s for i, s in enumerate(sets[2])]),
+             (pts, sets[3])]
+    sizes = [200, 400]
+    plans = []
     pin = None
-    layouts = []
-    for sc in sets:
-        s_np, x_np, y_np, sizes = _forest_case(pts, sc, [200, 400])
+    for _p, sc in cases:
         plan, pin = msm_forest.pin_plan_widths(
-            msm_forest.host_plan(s_np, sizes), pin)
-        layouts.append(msm_forest.packed_layout(plan))
+            msm_forest.host_plan(ints_to_limbs(sc), sizes), pin)
+    for _p, sc in cases:
+        plans.append(msm_forest.pin_plan_widths(
+            msm_forest.host_plan(ints_to_limbs(sc), sizes), pin)[0])
+    assert len({msm_forest.packed_layout(p) for p in plans}) == 1
+    assert plans[1]["entries"] < plans[0]["entries"] * 3 // 4
+    recs = msm_forest.ForestRecordings()
+    for (pp, sc), plan in zip(cases, plans):
+        x_np = ints_to_limbs([0 if p is None else p[0] for p in pp])
+        y_np = ints_to_limbs([0 if p is None else p[1] for p in pp])
         kernels.reset_launches()
         flat = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
         torch.cuda.synchronize()
         want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
+        want[0]["point_add"] += 1
         kernels.reset_launches()
         got = msm_forest.dispatch_planned_fuse3(
             x_np, y_np, plan, cuda, recordings=recs, slot="w")
         torch.cuda.synchronize()
         assert torch.equal(got, flat)
+        assert torch.equal(got.cpu(), msm_forest.dispatch_planned(
+            x_np, y_np, plan, CPU))
         assert (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
         assert want[0]["forest_frontier0"] == 1
         assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
-            hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
-    new = [i == 0 or layouts[i] != layouts[i - 1] for i in range(4)]
-    assert new[:3] == [True, False, True]
-    assert (recs.recorded, recs.replaced, recs.replays) == (
-        sum(new), sum(new) - 1, 4 - sum(new))
+            hc.g1_msm([s for s, p in zip(sc[a:b], pp[a:b]) if p],
+                      [p for p in pp[a:b] if p])
+            for a, b in ((0, 200), (200, 600))]
+    assert (recs.recorded, recs.replaced, recs.replays) == (1, 0, 3)
     assert recs.pool_bytes() > 0
+    nodes, launches = recs.counts("w")
+    assert launches["forest_frontier0"] == (1, plans[0]["point_idx0"].size)
+    assert launches["point_add"][0] == len(plans[0]["levels"]) + 1 + 7 + 14
+    assert nodes == {"kernel": sum(n for n, _ in launches.values()),
+                     "memcpy": 1, "memset": 0, "other": 0}
 
 
 def test_packed_capture_failure_raises(cuda, monkeypatch):
@@ -460,9 +532,11 @@ def test_packed_capture_failure_raises(cuda, monkeypatch):
 
 def test_packed_stream_launches_equal_flat(cuda):
     """The main path's workload streamed on each forest dispatch: the
-    same verdicts, and with the same isolation weights the same launches
-    and lanes per kernel, the packed stream's counted through its replays;
-    one recording serves it, and one more per re-pin."""
+    same verdicts, and with the same isolation weights the same lanes per
+    kernel and the same launches, but for one point-add launch more per
+    packed batch (its deepest part's scatter lanes), the packed stream's
+    counted through its replays; one recording serves it, and one more
+    per re-pin."""
     import random
 
     params, vk, items = weights.load_k14_mac_fixture()
@@ -483,7 +557,9 @@ def test_packed_stream_launches_equal_flat(cuda):
             assert recs.recorded == 1 + bv.plan_repins
     assert seen["flat"][0] == [True] * 3
     assert seen["packed"][1]["forest_frontier0"] == 3
-    assert seen["packed"] == seen["flat"]
+    res, launches, lanes, adds = seen["flat"]
+    launches["point_add"] += len(batches)
+    assert seen["packed"] == (res, launches, lanes, adds)
 
 
 def _pinned_cases(pts, seeds, sizes):

@@ -14,7 +14,7 @@ import torch
 
 from halo2_verifier_tpu.ops import hostcurve as jhc
 from halo2_verifier_tpu.ops import msm_forest as jforest
-from halo2_verifier_tpu_torch.ops import kernels, msm_forest
+from halo2_verifier_tpu_torch.ops import curve, kernels, msm_forest
 from halo2_verifier_tpu_torch.ops.constants import G1_GEN, R
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 from halo2_verifier_tpu_torch.utils.metrics import StageTimings
@@ -232,11 +232,16 @@ def test_non_canonical_plan_takes_the_flat_route(pts20, monkeypatch):
     assert calls and calls[0][2] is plan
 
 
-def test_fuse3_checks_the_plan_before_packing(pts20, monkeypatch):
-    """An index outside its frontier raises before any operand is
-    packed."""
+@pytest.mark.parametrize("index", ["level", "scatter_key"])
+def test_fuse3_checks_the_plan_before_packing(index, pts20, monkeypatch):
+    """An index outside its frontier, or a scatter key outside the
+    bucket grid (the kernel's scatter lanes write by key unchecked),
+    raises before any operand is packed."""
     plan, _jplan, x_np, y_np = _plans("random", pts20)
-    plan["levels"][0][1][0] = plan["point_idx0"].shape[0]
+    if index == "level":
+        plan["levels"][0][1][0] = plan["point_idx0"].shape[0]
+    else:
+        plan["finished"][1][2][0] = plan["tw"] * msm_forest.NUM_BUCKETS + 1
     monkeypatch.setattr(msm_forest, "pack_operands",
                         lambda *a: pytest.fail("packed an unchecked plan"))
     with pytest.raises(ValueError, match="out of range"):
@@ -288,3 +293,86 @@ def test_recorded_launches_are_counted_per_replay():
     kernels._count("point_add", 1, ())  # outside a capture: counted
     assert kernels.LAUNCHES["point_add"] == 8
     kernels.reset_launches()
+
+
+def _frontiers(plan, x_np, y_np):
+    """Every frontier of a plan's forest on the plain versions."""
+    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    f = [msm_forest.frontier0(torch.from_numpy(xs.view(np.int32)),
+                              torch.from_numpy(ys.view(np.int32)),
+                              torch.from_numpy(plan["point_idx0"]))]
+    for iL, iR in plan["levels"]:
+        f.append(curve.masked_add(f[-1], f[-1], iL=torch.from_numpy(iL),
+                                  iR=torch.from_numpy(iR)))
+    return f
+
+
+@pytest.fixture(scope="module")
+def grids(pts20):
+    """A random canonical plan's frontiers with (0, 0, 0) entries put
+    where its first two finished parts read, and its bucket grid both
+    ways: (frontiers, plan, _bucket_grid's grid from the gathered and
+    concatenated parts, the (3, 16, tw * 256 + 1) grid that the packed
+    chain's scatter lanes write part by part into the identity grid)."""
+    plan, _jplan, x_np, y_np = _plans("random", pts20)
+    f = _frontiers(plan, x_np, y_np)
+    for lvl, pos, _keys in plan["finished"][:2]:
+        f[lvl] = tuple(c.clone() for c in f[lvl])
+        for c in f[lvl]:
+            c[:, torch.from_numpy(pos[:2]).long()] = 0
+    fin = tuple(torch.cat([f[lvl][c].index_select(1, torch.from_numpy(
+        pos).long()) for lvl, pos, _k in plan["finished"]], dim=1)
+        for c in range(3))
+    keys = torch.from_numpy(msm_forest._plan_scatter_idx(plan)).long()
+    old = msm_forest._bucket_grid(fin, keys, plan["tw"])
+    new = msm_forest._identity_grid(plan["tw"])
+    for lvl, pos, k in plan["finished"]:
+        msm_forest.scatter_part_plain(f[lvl], torch.from_numpy(pos),
+                                      torch.from_numpy(k), tuple(new))
+    return f, plan, old, new
+
+
+@pytest.mark.parametrize("step", ["part_scatter", "leaf_fold", "pair_fold",
+                                  "horner"])
+def test_packed_chain_steps_equal_the_flat_sequence(step, grids):
+    """Each plain body of the packed chain's launches against the
+    sequence of the flat chain it replaces, on a random canonical plan:
+    part_scatter, the parts written one by one into the identity grid
+    with the Y := R patch (duplicate dump keys, (0, 0, 0) entries),
+    against the gather, concatenation and _bucket_grid; leaf_fold, the
+    first fold by the leaf index pairs, against the leaf gather and
+    _fold_pairs; pair_fold, a later fold by cached pair indices, against
+    _fold_pairs; horner, the fold by index (the first doubling by
+    index), against the gather and _horner_bits."""
+    f, plan, old, new = grids
+    tw = plan["tw"]
+    dump = tw * msm_forest.NUM_BUCKETS
+    if step == "part_scatter":
+        keys = msm_forest._plan_scatter_idx(plan)
+        assert (keys == dump).sum() > 1
+        zeroed = plan["finished"][0][2][:2]
+        assert torch.equal(new[:, :, zeroed], msm_forest._identity_grid(
+            tw)[:, :, :2])
+        for c in range(3):
+            assert torch.equal(new[c, :, :dump], old[c])
+        return
+    if step == "leaf_fold":
+        leaf = torch.from_numpy(msm_forest._bucket_leaf_idx(tw)).long()
+        want = msm_forest._fold_pairs(tuple(c.index_select(1, leaf)
+                                            for c in old))
+        iL, iR = msm_forest._leaf_pairs(tw)
+        got = curve.masked_add(tuple(new), tuple(new), iL=iL, iR=iR)
+    elif step == "pair_fold":
+        rows = tuple(c[:, :4096].contiguous() for c in old)
+        want = msm_forest._fold_pairs(rows)
+        iL, iR = msm_forest._pair_idx(4096)
+        got = curve.masked_add(rows, rows, iL=iL, iR=iR)
+    else:
+        planes = tuple(c[:, 37:37 + tw * msm_forest.WINDOW_BITS].contiguous()
+                       for c in old)
+        want = msm_forest._horner_bits(planes, tw)
+        got = msm_forest._horner_indexed(planes, tw)
+        assert got.shape == (3, 16, tw)
+        assert torch.equal(got, want)
+        return
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
