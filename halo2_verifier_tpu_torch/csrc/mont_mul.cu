@@ -147,3 +147,21 @@ extern "C" int h2v_sqrt_principal(const int32_t* xs, int32_t* ys,
             xs, ys, (uint32_t)width, (uint32_t)n);
     return (int)cudaGetLastError();
 }
+
+// The square root as above, then, from the same call, an H2D copy of
+// `bytes` from pinned `src` to `dst` queued on `copy_stream` and the event
+// `done` recorded after it: with no host latency between the two, the
+// copy runs on the card beside the kernel.
+extern "C" int h2v_sqrt_principal_beside(const int32_t* xs, int32_t* ys,
+                                         long long width, void* stream,
+                                         void* dst, const void* src,
+                                         long long bytes, void* copy_stream,
+                                         void* done) {
+    int rc = h2v_sqrt_principal(xs, ys, width, stream);
+    if (rc != 0) return rc;
+    cudaStream_t cs = (cudaStream_t)copy_stream;
+    rc = (int)cudaMemcpyAsync(dst, src, (size_t)bytes,
+                              cudaMemcpyHostToDevice, cs);
+    if (rc != 0) return rc;
+    return (int)cudaEventRecord((cudaEvent_t)done, cs);
+}

@@ -150,6 +150,8 @@ def load():
         ctypes.c_int,                        # n_threads
         ctypes.c_char_p,                     # ext_y (or None): device-
                                              # decompressed principal roots
+        ctypes.POINTER(ctypes.c_uint64),     # timings (or None): ns of the
+                                             # sampled proofs' op classes
     ]
     lib.h2v_replay_batch.restype = ctypes.c_int64
     u64p = ctypes.POINTER(ctypes.c_uint64)

@@ -18,7 +18,13 @@
 // n_points*64B canonical LE (x||y), status 0 ok / 1 invalid (malformed
 // proof stream: bad point encoding, non-canonical scalar, short proof, or
 // an inversion of zero).
+//
+// Optional timing: for one proof in every kTimingEvery, the VM reads the
+// clock where the tape's op class changes (hash, point, field) and sums
+// the nanoseconds per class over the batch's threads. The other proofs,
+// and every proof when the caller passes no timings buffer, read no clock.
 
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -350,6 +356,52 @@ enum Op : uint32_t {
   OP_BATCH_INV = 12,
 };
 
+// Op classes of the sampled timing, in the order of the timings buffer.
+enum OpClass : int { CLS_HASH = 0, CLS_POINT = 1, CLS_FIELD = 2 };
+constexpr uint64_t kTimingEvery = 8;
+
+// hash: the transcript's absorb and squeeze work (OP_READ_POINT's absorb
+// too); point: OP_READ_POINT's decoding and curve check; field: the rest.
+inline int op_class(uint32_t code) {
+  switch (code) {
+    case OP_SQUEEZE:
+    case OP_READ_SCALAR:
+    case OP_ABSORB_REG:
+      return CLS_HASH;
+    case OP_READ_POINT:
+      return CLS_POINT;
+    default:
+      return CLS_FIELD;
+  }
+}
+
+inline u64 now_ns() {
+  return (u64)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// Nanoseconds per op class along one proof's tape; the clock is read only
+// where the class changes.
+struct ClassClock {
+  u64 ns[3] = {0, 0, 0};
+  int cur = CLS_HASH;
+  u64 t = 0;
+
+  void start(int c) {
+    cur = c;
+    t = now_ns();
+  }
+  void to(int c) {
+    if (c == cur) return;
+    u64 n = now_ns();
+    ns[cur] += n - t;
+    t = n;
+    cur = c;
+  }
+  void stop() { ns[cur] += now_ns() - t; }
+};
+
 struct Program {
   uint32_t n_ops, n_regs, n_points, n_aux, n_consts, n_out, hash_kind,
       min_proof_len;
@@ -384,11 +436,13 @@ struct Program {
 // returns 0 ok, 1 invalid. weight_mont (optional): all exported scalars
 // are multiplied by it — the AccumulatorStrategy's per-proof random
 // isolation weight (kzg/strategy.rs:129), folded in here so the host never
-// touches per-entry big ints.
+// touches per-entry big ints. kTimed: `clk`, started by the caller in
+// CLS_HASH, follows the tape's op classes (the caller stops it).
+template <bool kTimed>
 int run_one(const Program& p, const uint8_t* proof, u64 proof_len,
             const uint8_t* aux, const u64* weight_mont, u64* regs,
             uint8_t* out_scalars, uint8_t* out_points,
-            const uint8_t* ext_y) {
+            const uint8_t* ext_y, ClassClock* clk) {
   Transcript tr;
   tr.init((int)p.hash_kind);
   u64 cursor = 0;
@@ -397,6 +451,7 @@ int run_one(const Program& p, const uint8_t* proof, u64 proof_len,
   for (uint32_t i = 0; i < p.n_ops; ++i) {
     const uint32_t* op = p.ops + 4 * i;
     u64* dst = regs + 4 * op[1];
+    if constexpr (kTimed) clk->to(op_class(op[0]));
     switch (op[0]) {
       case OP_END:
         goto done;
@@ -486,6 +541,7 @@ int run_one(const Program& p, const uint8_t* proof, u64 proof_len,
         } else if (!decompress_point(proof + cursor, xy)) {
           return 1;
         }
+        if constexpr (kTimed) clk->to(CLS_HASH);
         cursor += 32;
         tmp[0] = kPrefixPoint;
         std::memcpy(tmp + 1, xy, 64);
@@ -511,6 +567,7 @@ int run_one(const Program& p, const uint8_t* proof, u64 proof_len,
     }
   }
 done:
+  if constexpr (kTimed) clk->to(CLS_FIELD);
   for (uint32_t i = 0; i < p.n_out; ++i) {
     u64 v[4];
     if (weight_mont) {
@@ -537,13 +594,16 @@ extern "C" {
 // ext_y (optional): n_proofs * n_points * 32B canonical LE principal roots
 // of x^3+3 (device sqrt pre-pass) — READ_POINT then verifies y^2 == x^3+3
 // and applies the sign bit instead of computing the Fermat sqrt itself.
+// timings (optional): 4 u64, set to the nanoseconds, summed over threads,
+// that the proofs i with i % kTimingEvery == 0 spent in op classes hash,
+// point and field, and their whole run (the sum of the three).
 int64_t h2v_replay_batch(const uint8_t* program_buf, const uint8_t* proofs,
                          uint64_t proof_stride, const uint64_t* proof_lens,
                          const uint8_t* aux, uint64_t aux_stride,
                          uint64_t n_proofs, const uint8_t* weights,
                          uint8_t* out_scalars, uint8_t* out_points,
                          uint8_t* status, int n_threads,
-                         const uint8_t* ext_y) {
+                         const uint8_t* ext_y, uint64_t* timings) {
   Program p;
   if (!p.parse(program_buf)) return -1;
   if (n_threads < 1) n_threads = 1;
@@ -551,7 +611,10 @@ int64_t h2v_replay_batch(const uint8_t* program_buf, const uint8_t* proofs,
   if (hw && (unsigned)n_threads > hw) n_threads = (int)hw;
   if ((u64)n_threads > n_proofs) n_threads = (int)(n_proofs ? n_proofs : 1);
 
-  auto worker = [&](u64 lo, u64 hi) {
+  // per thread: ns of hash, point, field of its sampled proofs
+  std::vector<ClassClock> clocks((size_t)n_threads);
+
+  auto worker = [&](u64 lo, u64 hi, ClassClock* acc) {
     std::vector<u64> regs(4 * (size_t)p.n_regs);
     for (u64 i = lo; i < hi; ++i) {
       u64 wmont[4];
@@ -562,16 +625,28 @@ int64_t h2v_replay_batch(const uint8_t* program_buf, const uint8_t* proofs,
         to_mont(wmont, w, kFr);
         wp = wmont;
       }
-      status[i] = (uint8_t)run_one(
-          p, proofs + i * proof_stride, proof_lens[i], aux + i * aux_stride,
-          wp, regs.data(), out_scalars + i * (u64)p.n_out * 32,
-          out_points + i * (u64)p.n_points * 64,
-          ext_y ? ext_y + i * (u64)p.n_points * 32 : nullptr);
+      const uint8_t* proof = proofs + i * proof_stride;
+      const uint8_t* a = aux + i * aux_stride;
+      uint8_t* sc = out_scalars + i * (u64)p.n_out * 32;
+      uint8_t* pt = out_points + i * (u64)p.n_points * 64;
+      const uint8_t* ey = ext_y ? ext_y + i * (u64)p.n_points * 32 : nullptr;
+      if (timings && i % kTimingEvery == 0) {
+        ClassClock clk;
+        clk.start(CLS_HASH);
+        status[i] = (uint8_t)run_one<true>(p, proof, proof_lens[i], a, wp,
+                                           regs.data(), sc, pt, ey, &clk);
+        clk.stop();
+        for (int c = 0; c < 3; ++c) acc->ns[c] += clk.ns[c];
+      } else {
+        status[i] = (uint8_t)run_one<false>(p, proof, proof_lens[i], a, wp,
+                                            regs.data(), sc, pt, ey,
+                                            nullptr);
+      }
     }
   };
 
   if (n_threads == 1) {
-    worker(0, n_proofs);
+    worker(0, n_proofs, &clocks[0]);
   } else {
     std::vector<std::thread> threads;
     u64 chunk = (n_proofs + n_threads - 1) / n_threads;
@@ -579,9 +654,16 @@ int64_t h2v_replay_batch(const uint8_t* program_buf, const uint8_t* proofs,
       u64 lo = (u64)t * chunk;
       u64 hi = lo + chunk < n_proofs ? lo + chunk : n_proofs;
       if (lo >= hi) break;
-      threads.emplace_back(worker, lo, hi);
+      threads.emplace_back(worker, lo, hi, &clocks[(size_t)t]);
     }
     for (auto& th : threads) th.join();
+  }
+
+  if (timings) {
+    std::memset(timings, 0, 4 * sizeof(uint64_t));
+    for (const ClassClock& c : clocks)
+      for (int k = 0; k < 3; ++k) timings[k] += c.ns[k];
+    timings[3] = timings[0] + timings[1] + timings[2];
   }
 
   int64_t bad = 0;

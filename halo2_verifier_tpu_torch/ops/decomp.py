@@ -116,22 +116,41 @@ def y_principal_k1(xs):
                     lambda a, b: fm.add(a, b, FQ))
 
 
-def y_principal(xs):
+def y_principal(xs, beside=None):
     """(NLIMBS, B) int32 canonical x limbs -> canonical principal roots:
     one fused kernel launch for a CUDA tensor, the plain version for a CPU
     tensor. For a non-residue x^3+3 (or an x off the curve) the result
-    fails the VM's y0^2 check."""
+    fails the VM's y0^2 check. beside: a kernels.HostCopy the launch
+    queues with it (kernels.sqrt_principal), CUDA only."""
     if xs.is_cuda:
-        return kernels.sqrt_principal(xs)
+        return kernels.sqrt_principal(xs, beside)
+    if beside is not None:
+        raise ValueError("y_principal: a copy beside the plain version")
     return y_principal_plain(xs)
+
+
+def stage_x_batch(x_limbs_np, device):
+    """(M, NLIMBS) uint32 canonical x limbs -> the (NLIMBS, pad) int32
+    host tensor launch_y_batch uploads, pad M rounded up to PAD_GRAN; in
+    pinned memory where `device` is CUDA, so that the upload does not
+    block the host."""
+    m = x_limbs_np.shape[0]
+    pad = max(-(-m // PAD_GRAN) * PAD_GRAN, PAD_GRAN)
+    xs = np.zeros((NLIMBS, pad), dtype=np.int32)
+    xs[:, :m] = x_limbs_np.T
+    xs = torch.from_numpy(xs)
+    return xs.pin_memory() if torch.device(device).type == "cuda" else xs
+
+
+def launch_y_batch(xs, device, beside=None):
+    """stage_x_batch's tensor -> its principal roots on `device`: the
+    upload and the launch queued, nothing synchronized; beside: as
+    y_principal's."""
+    return y_principal(xs.to(device, non_blocking=True), beside)
 
 
 def dispatch_y_batch(x_limbs_np, device):
     """(M, NLIMBS) uint32 canonical x limbs -> (NLIMBS, pad) int32 tensor
     of principal roots on `device`, without synchronizing; pad is M
     rounded up to PAD_GRAN."""
-    m = x_limbs_np.shape[0]
-    pad = max(-(-m // PAD_GRAN) * PAD_GRAN, PAD_GRAN)
-    xs = np.zeros((NLIMBS, pad), dtype=np.int32)
-    xs[:, :m] = x_limbs_np.T
-    return y_principal(torch.from_numpy(xs).to(device))
+    return launch_y_batch(stage_x_batch(x_limbs_np, device), device)

@@ -39,6 +39,7 @@ import re
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -285,6 +286,8 @@ SIGNATURES = {
     "mont_mul.cu": {
         "h2v_mont_mul": [_VP, _VP, _VP, _LL, _CI, _VP],
         "h2v_sqrt_principal": [_VP, _VP, _LL, _VP],
+        "h2v_sqrt_principal_beside": [_VP, _VP, _LL, _VP, _VP, _VP, _LL,
+                                      _VP, _VP],
     },
     "frontier.cu": {
         "h2v_forest_frontier0": [_VP, _VP, _LL, _VP] + [_VP] * 3
@@ -376,17 +379,54 @@ def mont_mul8(a, b, field_id: int):
     return _mont_mul("mont_mul8", "f8", "mont_mul8.cu", a, b, field_id)
 
 
-def sqrt_principal(xs):
+class HostCopy(NamedTuple):
+    """An H2D copy to queue: pinned `src` into `dst` on the card, on
+    `stream`, with the event `done` recorded after it (an event that has
+    been recorded once, so that it has its CUDA handle)."""
+    dst: torch.Tensor
+    src: torch.Tensor
+    stream: torch.cuda.Stream
+    done: torch.cuda.Event
+
+
+def host_copy(c: HostCopy) -> None:
+    """Queue `c` on its own."""
+    with torch.cuda.stream(c.stream):
+        c.dst.copy_(c.src, non_blocking=True)
+        c.done.record(c.stream)
+
+
+def sqrt_principal(xs, beside=None):
     """The decomp pre-pass's square root: (16, B) canonical x limbs ->
-    canonical principal roots y0 = (x^3 + 3)^((q+1)/4) in one launch."""
+    canonical principal roots y0 = (x^3 + 3)^((q+1)/4) in one launch.
+    beside: a HostCopy queued by the same native call right after the
+    launch, so that it runs beside the kernel whatever holds the host."""
     _check_limbs("sqrt_principal", "u16", xs)
     out = torch.empty_like(xs)
     if out.numel() == 0:
+        if beside is not None:
+            host_copy(beside)
         return out
     lib = _lib("mont_mul.cu")
     with torch.cuda.device(xs.device):
-        rc = lib.h2v_sqrt_principal(xs.data_ptr(), out.data_ptr(),
-                                    xs.shape[1], _stream(xs.device))
+        if beside is None:
+            rc = lib.h2v_sqrt_principal(xs.data_ptr(), out.data_ptr(),
+                                        xs.shape[1], _stream(xs.device))
+        else:
+            c = beside
+            if (not c.src.is_pinned() or c.dst.device != xs.device
+                    or c.src.dtype != c.dst.dtype
+                    or c.src.numel() != c.dst.numel()
+                    or not (c.src.is_contiguous()
+                            and c.dst.is_contiguous())):
+                raise ValueError("sqrt_principal: beside copies a pinned "
+                                 "contiguous tensor into one of its shape "
+                                 "and type on the roots' card")
+            rc = lib.h2v_sqrt_principal_beside(
+                xs.data_ptr(), out.data_ptr(), xs.shape[1],
+                _stream(xs.device), c.dst.data_ptr(), c.src.data_ptr(),
+                c.src.numel() * c.src.element_size(), c.stream.cuda_stream,
+                c.done.cuda_event)
     _raise_on(rc, "sqrt_principal")
     _count("sqrt_principal", xs.shape[1], (xs,))
     return out

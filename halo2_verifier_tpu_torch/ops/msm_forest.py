@@ -901,8 +901,9 @@ def _pool_bytes(graph) -> int:
 class _Recording:
     """One recorded chain: its layout, the static packed input on the
     card, two pinned staging buffers (the stream keeps two batches in
-    flight) with the event after each one's copy, and once recorded the
-    CUDA graph, its static output, the launches one replay makes and the
+    flight) with the event after each one's copy, the event after the
+    last chain that read the static input, and once recorded the CUDA
+    graph, its static output, the launches one replay makes and the
     graph's nodes by type."""
 
     def __init__(self, layout, device):
@@ -911,7 +912,12 @@ class _Recording:
         self.buf = torch.empty(layout.total, dtype=I32, device=device)
         self.staging = [torch.empty(layout.total, dtype=I32,
                                     pin_memory=True) for _ in range(2)]
-        self.copied = [None, None]
+        # recorded once here, so that each has its CUDA handle for a copy
+        # queued from native code (kernels.HostCopy)
+        self.copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self.replayed = torch.cuda.Event()
+        for e in (*self.copied, self.replayed):
+            e.record()
         self.turn = 0
         self.graph = None
         self.out = None
@@ -928,7 +934,10 @@ class ForestRecordings:
     One slot per workload (the orchestrator keys them by its pin key): a
     slot holds one recording. A batch whose layout is its slot's is one
     pack into pinned memory, one H2D copy into the recording's static
-    input, one replay and one copy of the recording's static output,
+    input on a copy stream of the device's own (it waits only for the
+    last chain that read that input, and the chain waits for it; the
+    caller may queue it beside a kernel of its own, before_upload), one
+    replay and one copy of the recording's static output,
     which is what the dispatch returns: the copy is queued before the
     lock is released, so no later replay, from this thread or another,
     can overwrite the totals a caller has not read yet. A slot's first
@@ -954,6 +963,7 @@ class ForestRecordings:
         self.max_slots = max_slots
         self._slots = OrderedDict()  # least recently dispatched first
         self._lock = threading.Lock()
+        self._copy_streams = {}
         self.recorded = 0
         self.replaced = 0
         self.evicted = 0
@@ -976,7 +986,11 @@ class ForestRecordings:
         torch.cuda.synchronize(self._slots.pop(slot).device)
 
     def dispatch(self, x_np, y_np, plan, layout, device, slot=None,
-                 timings=None):
+                 timings=None, before_upload=None):
+        """before_upload: called once the operands are packed with their
+        upload, a kernels.HostCopy; it returns True where it queued the
+        copy itself (beside a kernel of its own), else the copy is queued
+        here."""
         slot = layout if slot is None else slot
         with self._lock, torch.cuda.device(device):
             rec = self._slots.get(slot)
@@ -995,14 +1009,20 @@ class ForestRecordings:
             with maybe_stage(timings, "dispatch_pack"):
                 s = rec.turn
                 rec.turn ^= 1
-                if rec.copied[s] is not None:
-                    rec.copied[s].synchronize()
+                rec.copied[s].synchronize()
                 pack_operands(x_np, y_np, plan, layout,
                               rec.staging[s].numpy())
+            copy = self._copy_streams.get(device)
+            if copy is None:
+                copy = self._copy_streams[device] = torch.cuda.Stream(device)
+            copy.wait_event(rec.replayed)
+            upload = kernels.HostCopy(rec.buf, rec.staging[s], copy,
+                                      rec.copied[s])
+            queued = before_upload is not None and before_upload(upload)
             with maybe_stage(timings, "dispatch_h2d"):
-                rec.buf.copy_(rec.staging[s], non_blocking=True)
-                rec.copied[s] = torch.cuda.Event()
-                rec.copied[s].record()
+                if not queued:
+                    kernels.host_copy(upload)
+                torch.cuda.current_stream(device).wait_event(rec.copied[s])
             if rec.graph is None:
                 with maybe_stage(timings, "dispatch_record"):
                     try:
@@ -1011,9 +1031,11 @@ class ForestRecordings:
                     except BaseException:
                         del self._slots[slot]
                         raise
+                rec.replayed.record()
                 return out
             with maybe_stage(timings, "dispatch_launch"):
                 rec.graph.replay()
+                rec.replayed.record()
                 kernels.count_replay(rec.launches)
                 self.replays += 1
                 return rec.out.clone()
@@ -1059,7 +1081,7 @@ def _is_canonical(plan) -> bool:
 
 
 def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
-                           slot=None, timings=None):
+                           slot=None, timings=None, before_upload=None):
     """Device stage, the packed dispatch (the reference's
     dispatch_planned_fuse3 with its packed upload): every operand of the
     plan in one int32 buffer, one upload, the chain on views of it.
@@ -1073,7 +1095,9 @@ def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
     eagerly on the plain versions. A non-canonical (hand-built) plan goes
     to dispatch_planned, the reference's rule. timings: as
     dispatch_planned's, with dispatch_launch the replay and its output's
-    copy, and dispatch_record a slot's first batch and its recording."""
+    copy, and dispatch_record a slot's first batch and its recording.
+    before_upload: called once the operands are packed, before their
+    upload: ForestRecordings.dispatch's, on the CPU with None."""
     if not _is_canonical(plan):
         return dispatch_planned(x_np, y_np, plan, device, timings)
     with maybe_stage(timings, "dispatch_check"):
@@ -1085,6 +1109,8 @@ def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
         with maybe_stage(timings, "dispatch_pack"):
             buf = np.empty(layout.total, dtype=np.int32)
             pack_operands(x_np, y_np, plan, layout, buf)
+        if before_upload is not None:
+            before_upload(None)
         with maybe_stage(timings, "dispatch_launch"):
             return packed_chain(torch.from_numpy(buf).to(device), layout)
     if recordings is None:
@@ -1093,7 +1119,7 @@ def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return recordings.dispatch(x_np, y_np, plan, layout, device, slot,
-                               timings)
+                               timings, before_upload)
 
 
 def msm_grouped(scalars_np, x_np, y_np, sizes, device):

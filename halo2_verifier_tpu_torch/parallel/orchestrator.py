@@ -3,7 +3,11 @@ halo2_verifier_tpu/parallel/orchestrator.py: BatchVerifier, BatchResult).
 
 Pipeline:
 1. DEVICE, one batch ahead: the sqrt pre-pass (ops/decomp.py) computes
-   the principal root of every compressed proof point.
+   the principal root of every compressed proof point. Its x-coordinates
+   are gathered before the batch before is replayed; its kernel is
+   launched in that batch's packed forest dispatch, between the pack and
+   the upload of the MSM's operands, so that the upload runs on the card
+   beside the square roots.
 2. HOST, per proof: transcript replay on the native VM, with the isolation
    weights folded in, assembling the two accumulator MSMs as limb arrays.
 3. DEVICE: both MSMs as one host-planned addition forest
@@ -17,7 +21,8 @@ Pipeline:
    ops/pairing.py on the verifier's device); on failure, bisection over
    the replayed per-proof MSMs.
 
-All device work runs on the current stream of one device. Results come
+All device work runs on the current stream of one device, but for the
+packed forest's upload, on a copy stream of its own. Results come
 back through a non-blocking copy into pinned host memory and a recorded
 CUDA event: the finish workers wait on that event, never on the device,
 and only read their own buffer.
@@ -31,10 +36,16 @@ the dispatching thread, in stream order on every rank: the stream keeps
 one finish worker, and a failing batch is localized on that thread.
 
 Spans: the stages `timings` (utils/metrics.StageTimings) gets from a
-stream. On the thread that consumes verify_stream: decomp_dispatch (the
-pre-pass's gather, launch, D2H enqueue and hand-off, one batch ahead),
+stream. On the thread that consumes verify_stream: decomp_dispatch
+three times a batch (the pre-pass's gather and staging, one batch
+ahead; the upload and the roots' launch, inside the batch before's
+device_msm_dispatch on the packed forest; the D2H enqueue and hand-off
+after that dispatch),
 decomp_wait (the block on its roots), host_replay (with replay_vm, the
-native VM call, inside it; the rest is the staging around it),
+native VM call, inside it; the rest is the staging around it; inside
+replay_vm, replay_vm_hash, replay_vm_point and replay_vm_field, the call
+split by the op-class shares the VM timed on a sample of its proofs and
+laid end to end: apportioned, not observed),
 host_assemble, device_msm_dispatch (with dispatch_plan, inside it
 plan_native, plan_canonicalize and plan_pin, then msm_forest's dispatch_*
 parts and dispatch_prefetch) and finish_wait (the block on the oldest
@@ -60,7 +71,7 @@ import torch
 from ..ops import msm_forest, msm_scan
 from ..ops import hostcurve as hc
 from ..ops.constants import R
-from ..ops.decomp import dispatch_y_batch
+from ..ops.decomp import launch_y_batch, stage_x_batch
 from ..ops.limbs import ints_to_limbs, limbs_to_ints
 from ..ops.msm import NUM_WINDOWS, combine_window_totals_grouped
 from ..protocol.kzg import DualMSM, VerifyFailure, pairing_backend
@@ -84,6 +95,63 @@ def _dedup_entries(entries):
         else:
             out[j][0] = (out[j][0] + s) % R
     return [(s, b) for s, b in out]
+
+
+class _PendingDecomp:
+    """A stream batch's sqrt pre-pass, its x-coordinates gathered and
+    staged on the host (per vk group; None where a group has no points),
+    launched later in two steps, each once: launch_roots(beside) queues
+    their upload and the roots' kernel, with `beside` (a
+    kernels.HostCopy: the packed forest's upload) queued by the first
+    kernel's own call, and returns whether it queued it; hand_off() (after
+    launch_roots() where that has not run) queues the roots' D2H and
+    hands their fetch and pack to the stream's decomp worker. result(g)
+    hands off where that has not happened and gives group g's ext_y
+    bytes."""
+
+    def __init__(self, verifier, xs, counts, executor):
+        self.verifier = verifier
+        self.xs = xs
+        self.counts = counts
+        self.executor = executor
+        self.ys = None
+        self.futures = None
+
+    def launch_roots(self, beside=None):
+        if self.ys is not None or self.futures is not None:
+            return False
+        bv = self.verifier
+        queued = False
+        with bv.timings.stage("decomp_dispatch"):
+            self.ys = []
+            for xs in self.xs:
+                if xs is None:
+                    self.ys.append(None)
+                    continue
+                self.ys.append(launch_y_batch(
+                    xs, bv.device, None if queued else beside))
+                queued = beside is not None
+            bv.decomp_points_dispatched += sum(self.counts)
+        return queued
+
+    def hand_off(self):
+        if self.futures is not None:
+            return
+        from ..protocol.replay_native import CompiledReplay
+
+        self.launch_roots()
+        bv = self.verifier
+        with bv.timings.stage("decomp_dispatch"):
+            self.futures = [
+                None if ys is None else self.executor.submit(
+                    lambda p=bv._prefetch_d2h(ys), m=m:
+                    CompiledReplay.pack_ext_y(bv._fetch(p), m))
+                for ys, m in zip(self.ys, self.counts)]
+        self.xs = self.ys = None
+
+    def result(self, group):
+        self.hand_off()
+        return self.futures[group].result()
 
 
 @dataclass
@@ -337,7 +405,8 @@ class BatchVerifier:
                                     ints_to_limbs(ys),
                                     [len(g) for g in groups], timings)
 
-    def _dispatch_limbs(self, s_np, x_np, y_np, sizes, timings=None):
+    def _dispatch_limbs(self, s_np, x_np, y_np, sizes, timings=None,
+                        before_upload=None):
         """Dispatch the grouped MSM from canonical limb arrays (scalars and
         affine coords, concatenated per group). Returns the async handle.
 
@@ -345,7 +414,9 @@ class BatchVerifier:
         dispatch's parts (dispatch_plan: host_plan, with its plan_native
         and plan_canonicalize, and the pin, plan_pin; the dispatch's own,
         see msm_forest.dispatch_planned; dispatch_prefetch); the stream
-        passes its own, the bisection none."""
+        passes its own, the bisection none. before_upload: called by the
+        packed forest dispatch between its pack and its upload (see
+        msm_forest.ForestRecordings.dispatch), by no other."""
         self.msm_entries_dispatched += s_np.shape[0]
         if self.msm == "host":
             # exact host MSM (native C++ Pippenger), for orchestration
@@ -402,7 +473,7 @@ class BatchVerifier:
             arr = msm_forest.dispatch_planned_fuse3(
                 x_np, y_np, plan, self.device,
                 recordings=self.forest_recordings, slot=key,
-                timings=timings)
+                timings=timings, before_upload=before_upload)
         else:
             arr = msm_forest.dispatch_planned(x_np, y_np, plan, self.device,
                                               timings)
@@ -505,38 +576,36 @@ class BatchVerifier:
         return [(self._vm_programs[k], groups[k]) for k in order]
 
     def _prefetch_decomp(self, batch, executor):
-        """Launch the device sqrt pre-pass for a batch (one launch per vk
-        group) and hand the fetch+pack to a worker thread; returns a list
-        of per-group Futures of ext_y bytes (None entries where the
-        pre-pass doesn't apply). Called one batch AHEAD in verify_stream."""
+        """Gather and stage a batch's compressed x-coordinates for the
+        device sqrt pre-pass (one group per vk group). Returns its
+        _PendingDecomp, or None where the pre-pass doesn't apply. Called
+        one batch AHEAD in verify_stream."""
         if not self.decomp:
             return None
-        from ..protocol.replay_native import CompiledReplay
-
         with self.timings.stage("decomp_dispatch"):
             groups = self._stream_groups(batch)
             if groups is None:
                 return None
-            futs = []
+            xs, counts = [], []
             for program, idxs in groups:
                 if not program.n_points:
-                    futs.append(None)
+                    xs.append(None)
+                    counts.append(0)
                     continue
-                xs = program.gather_point_xs([batch[i][0] for i in idxs])
-                ys = dispatch_y_batch(xs, self.device)
-                self.decomp_points_dispatched += xs.shape[0]
-                pre = self._prefetch_d2h(ys)
-                futs.append(executor.submit(
-                    lambda p=pre, m=xs.shape[0]:
-                    CompiledReplay.pack_ext_y(self._fetch(p), m)
-                ))
-            return futs
+                x = program.gather_point_xs([batch[i][0] for i in idxs])
+                xs.append(stage_x_batch(x, self.device))
+                counts.append(x.shape[0])
+        return _PendingDecomp(self, xs, counts, executor)
 
-    def _fast_stream_dispatch(self, batch, pads, ext_y_futs=None):
+    def _fast_stream_dispatch(self, batch, pads, decomp=None,
+                              decomp_next=None):
         """VM raw fast path for a stream batch: replay with the per-proof
         isolation weights folded in-VM (per vk group), assemble the two
-        accumulator MSMs as numpy limb arrays, dispatch. Returns
-        (handle, pads) or None when inapplicable. MalformedProof
+        accumulator MSMs as numpy limb arrays, dispatch. decomp: the
+        batch's _PendingDecomp; decomp_next: the next batch's, its roots
+        launched between the pack and the upload of a packed forest
+        dispatch, handed off after the dispatch.
+        Returns (handle, pads) or None when inapplicable. MalformedProof
         propagates."""
         groups = self._stream_groups(batch)
         if groups is None:
@@ -548,9 +617,9 @@ class BatchVerifier:
                 sub = [(batch[i][0], batch[i][1]) for i in idxs]
                 w = [weights[i] for i in idxs]
                 ext_y = None
-                if ext_y_futs is not None and ext_y_futs[gi] is not None:
+                if decomp is not None and decomp.counts[gi]:
                     with self.timings.stage("decomp_wait"):
-                        ext_y = ext_y_futs[gi].result()
+                        ext_y = decomp.result(gi)
                 with self.timings.stage("host_replay"):
                     sc, pt = program.replay_batch_raw(
                         sub, w, ext_y=ext_y, timings=self.timings)
@@ -593,7 +662,11 @@ class BatchVerifier:
                 np.concatenate(parts["x"]),
                 np.concatenate(parts["y"]),
                 sizes, self.timings,
+                decomp_next.launch_roots if decomp_next is not None
+                else None,
             )
+        if decomp_next is not None:
+            decomp_next.hand_off()
         return handle, pads
 
     def _collect_pair(self, handle):
@@ -689,24 +762,30 @@ class BatchVerifier:
             return res
 
         def batches_with_decomp():
-            """One-batch lookahead for the device sqrt pre-pass."""
+            """One-batch lookahead for the device sqrt pre-pass: the next
+            batch's gather before this one is replayed; its launch in
+            this batch's packed dispatch (the roots' kernel between the
+            pack and the upload, the hand-off after the dispatch), or at
+            the latest here, before the gather after it."""
             it = iter(batches)
             cur = next(it, None)
             if cur is None:
                 return
-            cur_y = self._prefetch_decomp(cur, decomp_executor)
+            cur_d = self._prefetch_decomp(cur, decomp_executor)
             while cur is not None:
+                if cur_d is not None:
+                    cur_d.hand_off()
                 nxt = next(it, None)
-                nxt_y = (self._prefetch_decomp(nxt, decomp_executor)
+                nxt_d = (self._prefetch_decomp(nxt, decomp_executor)
                          if nxt is not None else None)
-                yield cur, cur_y
-                cur, cur_y = nxt, nxt_y
+                yield cur, cur_d, nxt_d
+                cur, cur_d = nxt, nxt_d
 
         try:
-            for batch, ext_y_fut in batches_with_decomp():
+            for batch, decomp, decomp_next in batches_with_decomp():
                 try:
                     fast = self._fast_stream_dispatch(batch, stream_pads,
-                                                      ext_y_fut)
+                                                      decomp, decomp_next)
                 except VerifyFailure:
                     while pending:
                         yield result()

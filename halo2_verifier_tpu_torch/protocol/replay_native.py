@@ -10,6 +10,7 @@ equality (tests/test_replay_vm.py).
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 
@@ -17,6 +18,10 @@ from ..ops.constants import R
 from ..utils.metrics import maybe_stage
 from .kzg import DualMSM, MSMKZG, VerifyFailure
 from .trace import trace_verify
+
+
+# the VM's op classes, in the order of h2v_replay_batch's timings buffer
+OP_CLASS_STAGES = ("replay_vm_hash", "replay_vm_point", "replay_vm_field")
 
 
 class MalformedProof(VerifyFailure):
@@ -70,6 +75,13 @@ class CompiledReplay:
         timings: an optional utils.metrics.StageTimings whose stage
         `replay_vm` times the native call alone; the staging of the
         inputs and the copies of the outputs around it are the caller's.
+        The VM then also times one proof in every 8 by op class, and the
+        call's wall time is split by those shares into the stages
+        OP_CLASS_STAGES (the Fiat-Shamir hash, the point decoding and
+        curve checks, the field arithmetic), laid end to end inside
+        `replay_vm`, on its thread: apportioned, not observed intervals.
+        Without timings the VM reads no clock; the outputs are the same
+        either way.
 
         Raises MalformedProof (listing indices) if any proof stream is
         invalid — the same outcome class as the Python replay raising on
@@ -111,13 +123,25 @@ class CompiledReplay:
         aux_c = ctypes.cast(
             (ctypes.c_char * len(aux_buf)).from_buffer(aux_buf),
             ctypes.c_char_p)
+        class_ns = None if timings is None else (ctypes.c_uint64 * 4)()
         with maybe_stage(timings, "replay_vm"):
+            t0 = time.perf_counter()
             bad = lib.h2v_replay_batch(
                 bytes(self.blob), proof_c, stride,
                 lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
                 aux_c, aux_stride, n, wbuf, out_scalars, out_points,
-                status, 2, ext_y,
+                status, 2, ext_y, class_ns,
             )
+            if class_ns is not None and class_ns[3]:
+                # apportioned, not observed: the classes alternate along
+                # the tape, so their parts are laid end to end in the call
+                wall = time.perf_counter() - t0
+                done = 0
+                for k, name in enumerate(OP_CLASS_STAGES):
+                    a = t0 + wall * done / class_ns[3]
+                    done += class_ns[k]
+                    timings.add_span(name, a,
+                                     t0 + wall * done / class_ns[3])
         if bad < 0:
             raise RuntimeError("replay VM rejected the program")
         if bad:

@@ -19,6 +19,9 @@ class StageTimings:
     # dict-entry += is load/add/store and can lose updates without this
     _lock: threading.Lock = field(default_factory=threading.Lock,
                                   repr=False, compare=False)
+    # None, or a list that keeps every stage call as (name, thread, t0, t1)
+    # on the perf_counter clock
+    intervals: list | None = field(default=None, repr=False, compare=False)
 
     @contextmanager
     def stage(self, name: str):
@@ -26,16 +29,25 @@ class StageTimings:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
+            t1 = time.perf_counter()
+            self._record(name, t1 - t0, t0, t1)
 
     def add(self, name: str, seconds: float) -> None:
         """Add one call of `seconds` to a stage timed by its caller."""
+        t1 = time.perf_counter()
+        self._record(name, seconds, t1 - seconds, t1)
+
+    def add_span(self, name: str, t0: float, t1: float) -> None:
+        """Add one call of a stage that its caller places from t0 to t1
+        on the perf_counter clock, on this thread."""
+        self._record(name, t1 - t0, t0, t1)
+
+    def _record(self, name, seconds, t0, t1) -> None:
         with self._lock:
             self.totals[name] += seconds
             self.counts[name] += 1
+            if self.intervals is not None:
+                self.intervals.append((name, threading.get_ident(), t0, t1))
 
     def report(self) -> dict:
         return {

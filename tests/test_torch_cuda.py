@@ -387,6 +387,35 @@ def test_sqrt_kernel_matches_k1_loop_and_plain(cuda):
         pow((x ** 3 + 3) % P, (P + 1) // 4, P) for x in edge]
 
 
+def test_sqrt_with_a_copy_beside_it(cuda):
+    """sqrt_principal with a HostCopy beside it: the roots equal the
+    plain version's, the copy lands whole after its event, and it ran on
+    its own stream: the copy stream, held behind an event that only the
+    host sets later, keeps the copy back while the roots finish."""
+    pts = _points(512)
+    xs = _limbs_t([p[0] for p in pts], cuda)
+    plain = decomp.y_principal_plain(xs)
+    src = torch.arange(3 << 20, dtype=torch.int32).pin_memory()
+    dst = torch.zeros(src.shape, dtype=torch.int32, device=cuda)
+    copy = torch.cuda.Stream(cuda)
+    done = torch.cuda.Event()
+    done.record(copy)
+    gate = torch.cuda.Event()
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000_000)
+        gate.record(side)
+    copy.wait_event(gate)
+    roots = decomp.y_principal(xs, kernels.HostCopy(dst, src, copy, done))
+    torch.cuda.current_stream(cuda).synchronize()
+    assert torch.equal(roots, plain)
+    assert not done.query()
+    done.synchronize()
+    assert torch.equal(dst.cpu(), src)
+    with pytest.raises(ValueError):
+        decomp.y_principal(xs, kernels.HostCopy(dst, src[1:], copy, done))
+
+
 def test_frontier0_kernel_matches_plain(cuda):
     """The level-0 frontier kernel on random points, (0, 0) lanes (the
     identity pad's among them) and repeated indices, against
@@ -653,6 +682,65 @@ def test_k14_stream_on_card(cuda):
     assert all(kernels.LAUNCHES[k] > 0
                for k in ("forest_frontier0", "sqrt_principal", "point_add"))
     assert kernels.LAUNCHES["mont_mul"] == 0
+
+
+def test_k9_keccak_gwc_stream_on_card(cuda):
+    """Three 256-proof batches of the benchmark's k=9 Keccak256/GWC
+    configuration through verify_stream on the packed forest dispatch,
+    the last with one proof tampered: each verdict and failing position
+    is the plain reference's (portbench/reference), and the window totals
+    of every MSM the stream dispatched, the bisection's included, fold to
+    the host MSM of its entries."""
+    from portbench import cell, judge
+
+    spec = cell.load_spec()
+    cfg = cell.load_config(spec, "k9_mac_keccak_gwc")
+    stream = cell.build_stream(cfg, {"batch_sizes": [256], "cycles": 3,
+                                     "tamper_every": 3}, 2147483659)
+    batches = stream.cycle
+    assert [len(b.tampered) for b in batches] == [0, 0, 1]
+    keys = sorted({b.key(p) for b in batches for p in range(b.size)},
+                  key=lambda k: (not isinstance(k, int), str(k)))
+    valid, _facts = judge.item_verdicts(cfg, stream, keys, 2147483659)
+    bv = BatchVerifier(weights.params_from_srs(str(cfg.srs)),
+                       weights.vk_from_reference(cfg.vk_bytes),
+                       multiopen="gwc", hash_name="keccak256")
+    assert bv.forest_dispatch == "packed"
+    dispatched = []
+    real = bv._dispatch_limbs
+
+    def capture(s_np, x_np, y_np, sizes, timings=None, before_upload=None):
+        handle = real(s_np, x_np, y_np, sizes, timings, before_upload)
+        dispatched.append((s_np.copy(), x_np.copy(), y_np.copy(),
+                           list(sizes), handle))
+        return handle
+
+    bv._dispatch_limbs = capture
+    kernels.reset_launches()
+    got = [(r.ok, r.failed_indices, r.num_proofs)
+           for r in bv.verify_stream([b.proofs for b in batches])]
+    torch.cuda.synchronize()
+    want = [(*cell.expected(b, valid), b.size) for b in batches]
+    assert got == want
+    assert not want[2][0] and len(want[2][1]) == 1
+    assert len(dispatched) > len(batches)   # the bisection's MSMs too
+    for s_np, x_np, y_np, sizes, (kind, (buf, event)) in dispatched:
+        assert kind == "grouped"
+        event.synchronize()
+        ss, xs, ys = (limbs_to_ints(a) for a in (s_np, x_np, y_np))
+        host, off = [], 0
+        for size in sizes:
+            pairs = [(s, (x, y)) for s, x, y in zip(
+                ss[off:off + size], xs[off:off + size], ys[off:off + size])
+                if x or y]
+            host.append(hc.g1_msm([s for s, _ in pairs],
+                                  [p for _, p in pairs]) if pairs else None)
+            off += size
+        assert combine_window_totals_grouped(buf.numpy(), len(sizes)) == host
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("forest_frontier0", "sqrt_principal", "point_add"))
+    for name in ("replay_vm_hash", "replay_vm_point", "replay_vm_field"):
+        assert bv.timings.counts[name] >= len(batches), name
 
 
 def _fq_operands(n, seed):

@@ -7,8 +7,6 @@ localization is one span; StageTimings.stage keeps its one argument."""
 
 import inspect
 import threading
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import pytest
@@ -23,12 +21,16 @@ from halo2_verifier_tpu_torch.utils.metrics import StageTimings
 
 BATCHES = 2
 # every span a valid stream records once per batch (per vk group where
-# the batch has several)
-PER_BATCH = ("decomp_dispatch", "device_msm_dispatch", "dispatch_plan",
+# the batch has several); the pre-pass's three times: its gather, its
+# roots' launch, its hand-off
+PER_BATCH = ("device_msm_dispatch", "dispatch_plan",
              "plan_native", "plan_canonicalize", "plan_pin", "msm_wait",
              "msm_combine", "host_pairing", "finish_wait")
-PER_GROUP = ("decomp_wait", "host_replay", "replay_vm", "host_assemble")
+VM_CLASSES = ("replay_vm_hash", "replay_vm_point", "replay_vm_field")
+PER_GROUP = ("decomp_wait", "host_replay", "replay_vm", "host_assemble",
+             *VM_CLASSES)
 CALLER = ("decomp_dispatch", "decomp_wait", "host_replay", "replay_vm",
+          *VM_CLASSES,
           "host_assemble", "device_msm_dispatch", "dispatch_plan",
           "plan_native", "plan_canonicalize", "plan_pin", "finish_wait")
 WORKER = ("msm_wait", "msm_combine", "host_pairing")
@@ -39,18 +41,6 @@ GONE = ("device_msm", "device_msm_collect")
 class Spans(StageTimings):
     """A StageTimings that keeps every stage as (name, thread, t0, t1)."""
     intervals: list = field(default_factory=list, repr=False)
-
-    @contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            t1 = time.perf_counter()
-            with self._lock:
-                self.totals[name] += t1 - t0
-                self.counts[name] += 1
-                self.intervals.append((name, threading.get_ident(), t0, t1))
 
     def of(self, name):
         return [iv for iv in self.intervals if iv[0] == name]
@@ -103,7 +93,9 @@ def _split_groups(bv):
 
 @pytest.mark.parametrize("groups", [1, 2])
 def test_stream_records_each_span_once_per_batch(vm_k8, groups):
-    """A valid stream: each span once per batch (per group), replay_vm
+    """A valid stream: each span once per batch (per group), the
+    pre-pass's dispatch three times (its gather, its roots' launch, its
+    hand-off), replay_vm
     inside host_replay and the plan's parts inside dispatch_plan on the
     same thread, the MSM's wait and fold on a finish worker, the
     pre-pass's spans and the finish wait on the caller's thread; neither
@@ -119,11 +111,14 @@ def test_stream_records_each_span_once_per_batch(vm_k8, groups):
     counts = spans.counts
     for name in PER_BATCH:
         assert counts[name] == BATCHES, name
+    assert counts["decomp_dispatch"] == 3 * BATCHES
     for name in PER_GROUP:
         assert counts[name] == BATCHES * groups, name
     for name in GONE + ("localize",):
         assert name not in counts, name
     assert _inside(spans.of("replay_vm"), spans.of("host_replay"))
+    for name in VM_CLASSES:
+        assert _inside(spans.of(name), spans.of("replay_vm")), name
     for name in ("plan_native", "plan_canonicalize", "plan_pin"):
         assert _inside(spans.of(name), spans.of("dispatch_plan")), name
     caller = threading.get_ident()
@@ -132,6 +127,35 @@ def test_stream_records_each_span_once_per_batch(vm_k8, groups):
     for name in WORKER:
         assert caller not in {tid for _n, tid, _a, _b in spans.of(name)}, \
             name
+
+
+def test_packed_dispatch_launches_the_next_pre_pass_before_its_upload(
+        vm_k8):
+    """On the packed forest dispatch, the next batch's roots' launch
+    (its second decomp_dispatch) lies inside this batch's
+    device_msm_dispatch, after its pack and before its upload and
+    launch, and its hand-off (the third) follows that dispatch; the
+    first batch's launch precedes every dispatch, and the verdicts
+    stand."""
+    params, vk, items = vm_k8
+    bv = _verifier(params, vk, forest_dispatch="packed")
+    batches = [items[:2], items[1:], items[:2]]
+    got = [r.ok for r in bv.verify_stream(batches, pad_to=256)]
+    assert got == [True] * 3
+    spans = bv.timings
+    dispatches = sorted(spans.of("device_msm_dispatch"), key=lambda iv: iv[2])
+    packs = sorted(spans.of("dispatch_pack"), key=lambda iv: iv[2])
+    launches = sorted(spans.of("dispatch_launch"), key=lambda iv: iv[2])
+    pre = sorted(spans.of("decomp_dispatch"), key=lambda iv: iv[2])
+    assert len(dispatches) == len(packs) == len(launches) == 3
+    assert len(pre) == 9
+    inside = [iv for iv in pre if _inside([iv], dispatches)]
+    assert len(inside) == 2
+    for k, iv in enumerate(inside):
+        assert packs[k][3] <= iv[2] and iv[3] <= launches[k][2]
+        (after,) = [a for a in pre if a[2] >= iv[3]][:1]
+        assert dispatches[k][3] <= after[2]
+    assert pre[2][3] <= dispatches[0][2]
 
 
 def test_tampered_stream_records_localize_once(vm_k8):
@@ -182,7 +206,8 @@ def test_host_plan_times_its_parts_only_when_asked():
 
 def test_replay_vm_times_the_native_call_alone(vm_k8):
     """replay_batch_raw records replay_vm once per call, inside the
-    caller's own span, and gives the same bytes with or without it."""
+    caller's own span, with its op classes inside it, and gives the same
+    bytes with or without them."""
     from halo2_verifier_tpu_torch.protocol.replay_native import (
         CompiledReplay,
         vm_available,
@@ -195,8 +220,11 @@ def test_replay_vm_times_the_native_call_alone(vm_k8):
     with spans.stage("outer"):
         got = program.replay_batch_raw(items, timings=spans)
     assert got == program.replay_batch_raw(items)
-    assert dict(spans.counts) == {"outer": 1, "replay_vm": 1}
+    assert dict(spans.counts) == {"outer": 1, "replay_vm": 1,
+                                  **{name: 1 for name in VM_CLASSES}}
     assert _inside(spans.of("replay_vm"), spans.of("outer"))
+    for name in VM_CLASSES:
+        assert _inside(spans.of(name), spans.of("replay_vm")), name
 
 
 def test_stage_keeps_one_argument():
