@@ -151,6 +151,10 @@ TAMPER_BATCH = 64
 TAMPER_INDEX = 37
 MONT_MUL_WIDTHS = (16384, 1 << 19)  # decomp width, and a wide one
 POINT_ADD_WIDTH = 524288            # the forest's level-0 frontier
+POINT_ADD_NARROW_WIDTH = 12288      # a forest level in the narrow shape
+# the K2 row's narrow widths: a Horner step, the last fold, a deep level,
+# the widest fold below the narrow shape's threshold
+POINT_ADD_TIMED_WIDTHS = (64, 512, 4096, 16384)
 SQRT_WIDTHS = (15360, 16384)        # 15 points x 1,024 proofs; padded
 FOREST_SIZES = (1024, 15616)       # one main-path batch's two MSM groups
 SCAN_LANES = sum(FOREST_SIZES) * 32  # (entry, window) lanes of one batch
@@ -401,6 +405,12 @@ def max_abs_err(torch, got, want):
     if isinstance(got, (tuple, list)):
         return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def kernel_counts(kernels, counts):
+    """A dict of launch counts by kernel without the counters that count
+    a part of another kernel's launches (kernels.PART_COUNTERS)."""
+    return {k: v for k, v in counts.items() if k not in kernels.PART_COUNTERS}
 
 
 # ---------------------------------------------------------------- phases
@@ -825,7 +835,7 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
     if not decomp and bv.decomp_points_dispatched != 0:
         raise AssertionError(f"{phase}: the sqrt pre-pass ran on a path "
                              "that keeps host decompression")
-    for name, n in launches.items():
+    for name, n in kernel_counts(kernels, launches).items():
         if name in expect and n == 0:
             raise AssertionError(f"{phase}: kernel {name} never launched")
         if name not in expect and n != 0:
@@ -1015,7 +1025,8 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
         flat = msm_forest.dispatch_planned(x, y, plan, dev)
         torch.cuda.synchronize()
         want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
-        want[0]["point_add"] += 1
+        want[0]["point_add"] += 1          # the deepest part's scatter lanes,
+        want[0]["point_add_narrow"] += 1   # a launch of 0 add lanes
         kernels.reset_launches()
         timings = StageTimings()
         t0 = time.perf_counter()
@@ -1028,7 +1039,9 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
         err = max(err, max_abs_err(torch, got, flat))
         same_launches = (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
         nodes, tally = recs.counts("parity")
-        no_glue = nodes == {"kernel": sum(n for n, _ in tally.values()),
+        no_glue = nodes == {"kernel": sum(
+                                n for n, _ in kernel_counts(kernels,
+                                                            tally).values()),
                             "memcpy": 1, "memset": 0, "other": 0}
         rows.append({
             "batch": name, "level_widths": [int(plan["point_idx0"].shape[0])]
@@ -1159,7 +1172,7 @@ def phase_cli(torch, kernels, k9):
         launches = dict(kernels.LAUNCHES)
         if (rc, text) != (0, "OK"):
             raise AssertionError(f"cli_path: verify gave {text!r}, rc={rc}")
-        for name, n in launches.items():
+        for name, n in kernel_counts(kernels, launches).items():
             if (name in FOREST_KERNELS) != (n > 0):
                 raise AssertionError(f"cli_path: kernel {name} launched {n} "
                                      "times")
@@ -1774,7 +1787,7 @@ def phase_single(torch, kernels, BatchVerifier, fixture):
         if res.ok or res.failed_indices != [SINGLE_TAMPER_INDEX]:
             raise AssertionError(f"single_device_pairing ({pairing}): "
                                  f"ok={res.ok} failed={res.failed_indices}")
-        for name, n in launches.items():
+        for name, n in kernel_counts(kernels, launches).items():
             want = pairing == "device" and name in expect
             if want != (n > 0):
                 raise AssertionError(f"single_device_pairing ({pairing}): "
@@ -1840,7 +1853,8 @@ def phase_mesh_path(torch, np, kernels, msm_forest, fixture, BatchVerifier,
                     and kinds[kind]["equal_to_host_msm"]):
                 raise AssertionError(f"mesh_path: the {kind} kind differs "
                                      "from the single-device forest")
-            if set(kinds[kind]["launches"]) != set(MESH_KERNELS):
+            if set(kernel_counts(kernels, kinds[kind]["launches"])) != set(
+                    MESH_KERNELS):
                 raise AssertionError(f"mesh_path: the {kind} kind launched "
                                      f"{kinds[kind]['launches']}")
         res, record, bv = phase_stream(
@@ -1965,7 +1979,7 @@ def mesh_rank_main(torch, np, rank, work):
             if got != want:
                 raise AssertionError(f"rank {rank}: the {kind} kind "
                                      "differs from the host MSM")
-            if set(launches) != set(expect[kind]):
+            if set(kernel_counts(kernels, launches)) != set(expect[kind]):
                 raise AssertionError(f"rank {rank}: the {kind} kind "
                                      f"launched {launches}")
             line = {"handle": handle[0], "seconds": round(dt, 4),
@@ -1995,7 +2009,7 @@ def mesh_rank_main(torch, np, rank, work):
         if "host_assemble" not in bv.timings.totals:
             raise AssertionError(f"rank {rank}: the VM fast path did not "
                                  "serve the stream")
-        for name, n in launches.items():
+        for name, n in kernel_counts(kernels, launches).items():
             if (name in MESH_KERNELS) != (n > 0):
                 raise AssertionError(f"rank {rank}: stream launched {name} "
                                      f"{n} times")
@@ -2291,6 +2305,32 @@ def phase_timings(torch, card, kernels, records, curve, fm, f8, decomp):
     return rows, beside
 
 
+def phase_point_add_widths(torch, card, kernels, record, curve, fm, f8,
+                           decomp):
+    """K2 at POINT_ADD_TIMED_WIDTHS lanes, in whichever shape the
+    launcher takes there: the main path's widest point-add launch cut to
+    its first n lanes, each reading a frontier of just the 2n points they
+    gather (so the bound counts the bytes the lanes need), timed as its
+    own row."""
+    _b, (p, _q, _mask, iL, iR) = record["widest"]["point_add"]
+    below = kernels.narrow_below()
+    rows = []
+    for n in POINT_ADD_TIMED_WIDTHS:
+        idx = torch.cat([iL[:n], iR[:n]]).long()
+        f = tuple(c.index_select(1, idx).contiguous() for c in p)
+        lanes = torch.arange(2 * n, dtype=torch.int32, device=iL.device)
+        cut = (f, f, None, lanes[:n], lanes[n:])
+        rows.append({"phase": f"timing_point_add_{n}_lanes",
+                     "name": "point_add", "path": "main_path",
+                     "shape": "narrow" if n < below else "wide",
+                     "narrow_below": below,
+                     **time_kernel(torch, card, kernels, "point_add",
+                                   {**record,
+                                    "widest": {"point_add": (n, cut)}},
+                                   curve, fm, f8, decomp)})
+    return rows
+
+
 def device_times(prof):
     """Device time in microseconds by kernel or copy name, from a
     torch.profiler profile."""
@@ -2473,8 +2513,11 @@ def run(torch, card, dev, n_batches, make_verifier):
          "torch": torch.__version__, "cuda": torch.version.cuda})
     emit(phase_build(kernels))
     emit(phase_k1(torch, np, fm, ints_to_limbs, dev))
-    emit(phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev,
-                  POINT_ADD_WIDTH))
+    for width in (POINT_ADD_WIDTH, POINT_ADD_NARROW_WIDTH):
+        emit({**phase_k2(torch, np, hc, fm, curve, ints_to_limbs, dev,
+                         width),
+              "shape": "narrow" if width < kernels.narrow_below()
+              else "wide"})
     emit(phase_sqrt(torch, np, hc, fm, curve, ints_to_limbs, decomp, dev))
     if not emit(phase_k3(torch, np, hc, fm, curve, ints_to_limbs, dev,
                          POINT_DOUBLE_WIDTH))["double_equals_self_add_affine"]:
@@ -2598,6 +2641,10 @@ def run(torch, card, dev, n_batches, make_verifier):
     for r in rows:
         emit({"phase": f"timing_{r['name']}", **r})
     for r in beside:
+        emit(r)
+    for r in phase_point_add_widths(torch, card, kernels,
+                                    records["main_path"], curve, fm, f8,
+                                    decomp):
         emit(r)
     out({"phase": "done", "seconds": round(time.time() - t_start, 3), **tag})
     out(card.smi)

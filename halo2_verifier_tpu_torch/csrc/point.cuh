@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "field.cuh"
 
 namespace h2v {
@@ -39,6 +41,23 @@ struct AddShape<Limbs8> {
     static constexpr int kThreads = 256;
     static constexpr int kMinBlocks = 1;
     static constexpr bool kRolled = true;
+};
+
+// The 16-bit add's narrow shape (narrow::point_add_kernel): a launch of
+// fewer than kBelow add lanes gives each output lane a group of kGroup
+// threads of one warp (8 or 4), in blocks of kBlock threads. Chosen on
+// the card by sweep_kernels.py point_add at the chain's narrow widths
+// (PERF.md; NVIDIA H100 80GB HBM3 at 700.00 W, device time per launch):
+// 8 threads a lane in blocks of 64 take 4.3 us at 64 lanes, 6.1 at 4,096
+// and 16.4 at 16,384, where the wide shape takes 12.8, 17.4 and 17.9; 4
+// threads a lane (two products each a layer) run 6.3-7.7 us up to 4,096
+// lanes and within 1.2 us of 8 above; at 20,480 lanes the wide shape,
+// which issues ~2.5x fewer instructions a lane, is ahead (18.3 against
+// 19.8 us), so launches from 18,432 lanes take it.
+struct NarrowShape {
+    static constexpr int kGroup = 8;
+    static constexpr int kBlock = 64;
+    static constexpr int kBelow = 18432;
 };
 
 __device__ __forceinline__ Fe fq_mul(const Fe& a, const Fe& b) {
@@ -237,6 +256,142 @@ point_add_kernel(const typename L::T* __restrict__ px,
         add_unrolled<L>(X1, Y1, Z1, X2, Y2, Z2, o, width);
 }
 
+namespace narrow {
+
+__device__ __forceinline__ Fe shfl(const Fe& a, int src, int width) {
+    Fe r;
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+        r.w[w] = __shfl_sync(0xffffffffu, a.w[w], src, width);
+    return r;
+}
+
+// e_k for k in 0..5, by selects (a dynamic index would put e in local
+// memory)
+__device__ __forceinline__ Fe pick(int k, const Fe& e0, const Fe& e1,
+                                   const Fe& e2, const Fe& e3, const Fe& e4,
+                                   const Fe& e5) {
+    Fe r;
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+        r.w[w] = k == 0   ? e0.w[w]
+                 : k == 1 ? e1.w[w]
+                 : k == 2 ? e2.w[w]
+                 : k == 3 ? e3.w[w]
+                 : k == 4 ? e4.w[w]
+                          : e5.w[w];
+    return r;
+}
+
+template <class T>
+__device__ __forceinline__ T* coord(int c, T* x, T* y, T* z) {
+    return c == 0 ? x : c == 1 ? y : z;
+}
+
+// point_add_kernel's function in the narrow shape: a group of G =
+// NarrowShape::kGroup threads of one warp computes output lane i, the
+// formula's two layers of 6 independent Montgomery products spread over
+// it (R = 6 / G rounded up products per thread and layer; threads past
+// product 5 compute a copy that nothing reads):
+// - layer 1, product k of X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2),
+//   (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2): coordinates f and g of each side,
+//   loaded by the thread itself, summed (a + 0 = a where f = g);
+// - every thread gathers the six by warp shuffles and forms t3, t4,
+//   y3b, x3, z3, t1m itself (18 modular adds cost less than another
+//   exchange);
+// - layer 2, product k of t3 t1m, t4 y3b, y3b x3, t1m z3, z3 t4, x3 t3;
+// - thread c < 3 gathers products 2c and 2c + 1 and stores coordinate c
+//   of the sum: X3 = p0 - p1, Y3 = p2 + p3, Z3 = p4 + p5.
+// Every product and sum is add_unrolled's on the same canonical operands,
+// so outputs are bit-equal to the wide kernel's. Every thread of an add
+// block reaches every shuffle (lanes past the width compute on zeros and
+// store nothing); a masked-out lane reads no Q and stores P. Blocks past
+// the add lanes' hold the scatter lanes, one thread each.
+template <class L>
+__global__ void __launch_bounds__(NarrowShape::kBlock)
+point_add_kernel(const typename L::T* __restrict__ px,
+                 const typename L::T* __restrict__ py,
+                 const typename L::T* __restrict__ pz, uint32_t wp,
+                 const typename L::T* __restrict__ qx,
+                 const typename L::T* __restrict__ qy,
+                 const typename L::T* __restrict__ qz, uint32_t wq,
+                 const int32_t* __restrict__ il,
+                 const int32_t* __restrict__ ir,
+                 const uint8_t* __restrict__ mask,
+                 typename L::T* __restrict__ ox,
+                 typename L::T* __restrict__ oy,
+                 typename L::T* __restrict__ oz, uint32_t width,
+                 const PartScatter<L> sc) {
+    constexpr int G = NarrowShape::kGroup;
+    constexpr int B = NarrowShape::kBlock;
+    constexpr int R = (6 + G - 1) / G;
+    const uint32_t add_blocks = (width * G + B - 1) / B;
+    if (blockIdx.x >= add_blocks) {
+        uint32_t s = (blockIdx.x - add_blocks) * B + threadIdx.x;
+        if (s < sc.n) scatter_lane<L>(px, py, pz, wp, sc, s);
+        return;
+    }
+    uint32_t t = blockIdx.x * B + threadIdx.x;
+    uint32_t i = t / G;
+    int j = (int)(t % G);
+    bool lane = i < width;
+    bool adds = lane && (!mask || mask[i]);
+    uint32_t l = lane ? (il ? (uint32_t)il[i] : i) : 0;
+    uint32_t r = adds ? (ir ? (uint32_t)ir[i] : i) : 0;
+    Fe res[R];
+    Fe own = {};
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        int k = j + q * G;
+        k = k < 6 ? k : k - 6;
+        int f = k < 3 ? k : (k == 4 ? 1 : 0);
+        int g = k < 3 ? k : (k == 3 ? 1 : 2);
+        Fe a = {}, a2 = {}, b = {}, b2 = {};
+        if (lane) a = L::load(coord(f, px, py, pz) + l, wp);
+        if (lane && f != g) a2 = L::load(coord(g, px, py, pz) + l, wp);
+        if (adds) b = L::load(coord(f, qx, qy, qz) + r, wq);
+        if (adds && f != g) b2 = L::load(coord(g, qx, qy, qz) + r, wq);
+        if (q == 0) own = a;
+        res[q] = fq_mul(fq_add(a, a2), fq_add(b, b2));
+    }
+    Fe v[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = shfl(res[k / G], k % G, G);
+    Fe t3 = fq_sub(v[3], fq_add(v[0], v[1]));
+    Fe t4 = fq_sub(v[4], fq_add(v[1], v[2]));
+    Fe y3 = fq_sub(v[5], fq_add(v[0], v[2]));
+    Fe t2b = fq_mul_b3(v[2]);
+    Fe x3 = fq_add(fq_add(v[0], v[0]), v[0]);
+    Fe z3 = fq_add(v[1], t2b);
+    Fe t1m = fq_sub(v[1], t2b);
+    Fe y3b = fq_mul_b3(y3);
+    Fe p[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        int k = j + q * G;
+        k = k < 6 ? k : k - 6;
+        p[q] = fq_mul(pick(k, t3, t4, y3b, t1m, z3, x3),
+                      pick(k, t1m, y3b, x3, z3, t4, t3));
+    }
+    int c = j < 3 ? j : 0;
+    Fe e = {}, o = {};
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+        Fe se = shfl(p[q], (2 * c) % G, G);
+        Fe so = shfl(p[q], (2 * c + 1) % G, G);
+        if ((2 * c) / G == q) e = se;
+        if ((2 * c + 1) / G == q) o = so;
+    }
+    if (lane && j < 3)
+        L::store(coord(c, ox, oy, oz) + i, width,
+                 !adds ? own : c == 0 ? fq_sub(e, o) : fq_add(e, o));
+}
+
+}  // namespace narrow
+
+// The point add's launch: a 16-bit-limb launch of fewer than
+// NarrowShape::kBelow add lanes in the narrow shape, every other launch
+// in AddShape<L>'s.
 template <class L>
 int launch_point_add(const typename L::T* px, const typename L::T* py,
                      const typename L::T* pz, long long wp,
@@ -246,6 +401,19 @@ int launch_point_add(const typename L::T* px, const typename L::T* py,
                      const uint8_t* mask, typename L::T* ox,
                      typename L::T* oy, typename L::T* oz, long long width,
                      void* stream, const PartScatter<L>& sc = {}) {
+    if constexpr (std::is_same<L, Limbs16>::value) {
+        if (width < NarrowShape::kBelow) {
+            constexpr long long B = NarrowShape::kBlock;
+            long long blocks = (width * NarrowShape::kGroup + B - 1) / B +
+                               (sc.n + B - 1) / B;
+            narrow::point_add_kernel<L>
+                <<<(unsigned int)blocks, (unsigned int)B, 0,
+                   (cudaStream_t)stream>>>(
+                    px, py, pz, (uint32_t)wp, qx, qy, qz, (uint32_t)wq, il,
+                    ir, mask, ox, oy, oz, (uint32_t)width, sc);
+            return (int)cudaGetLastError();
+        }
+    }
     constexpr int threads = AddShape<L>::kThreads;
     long long lanes = width + sc.n;
     unsigned int blocks = (unsigned int)((lanes + threads - 1) / threads);

@@ -14,7 +14,8 @@
 // padding lanes rely on.
 //
 // Design (the kernel itself is point.cuh `point_add_kernel`, shared with
-// the 8-bit-limb entry of point_add8.cu): one thread per output lane. It
+// the 8-bit-limb entry of point_add8.cu; narrow launches below): one
+// thread per output lane. It
 // reads its two input points straight from the frontier by index (the TPU
 // path materialized both gathers in HBM first), keeps all intermediates in
 // registers as eight 32-bit words each, and writes X3, Y3, Z3 once. The
@@ -42,6 +43,24 @@
 // (chip_smoke.py) it runs at 39-42 % of its bound: 0.1306 ms on the
 // forest's widest launch (266,240 lanes, 38.6 % of 0.0504 ms) and 0.2350
 // ms on the scan's (532,480 lanes, 41.7 % of 0.0979 ms).
+//
+// Narrow shape (point.cuh NarrowShape, narrow::point_add_kernel): below
+// 18,432 add lanes (the chain's deep forest levels, its bucket-tree folds
+// from 16,384 lanes down and its 64-lane Horner steps) the wide shape
+// leaves most of the card idle and each lane waits on one thread's 12
+// serial Montgomery products (~1 us each): 12.8 us at 64 lanes, ~17-18 at
+// 512-16,384. The formula's multiplicative depth is 2 (6 independent
+// products, adds, 6 independent products), so a group of 8 threads of one
+// warp computes a lane: one product of each layer per thread, the first
+// layer's results exchanged by warp shuffles, the adds between the layers
+// repeated in every thread, and 3 threads storing one coordinate each.
+// Bound there: the critical path of 2 products, the adds and ~8 exchanges
+// of 8 words, not the pipes (64 lanes need 0.1 % of the card's
+// multiply-adds); it runs 4.3 us at 64 lanes and 6.1 at 4,096 (2,565
+// SASS instructions a thread, 80 registers). It issues ~2.5x the wide
+// shape's instructions per lane (8 threads of 2 products and 18 adds
+// against one of 12 and 27), so once the card fills the wide shape wins;
+// both give the same bits.
 //
 // Scatter lanes (h2v_point_add_scatter, the packed forest chain of
 // ops/msm_forest.py packed_chain): a forest level's launch, which reads
@@ -71,6 +90,12 @@ extern "C" int h2v_point_add(const int32_t* px, const int32_t* py,
     return h2v::launch_point_add<h2v::Limbs16>(
         px, py, pz, wp, qx, qy, qz, wq, il, ir, mask, ox, oy, oz, width,
         stream);
+}
+
+// Launches of either entry with fewer add lanes than this take the narrow
+// shape (point.cuh NarrowShape); ops/kernels.py counts them by it.
+extern "C" int h2v_point_add_narrow_below() {
+    return h2v::NarrowShape::kBelow;
 }
 
 // One forest level of the packed chain with its finished part: width add

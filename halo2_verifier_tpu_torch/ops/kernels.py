@@ -66,12 +66,16 @@ _lock = threading.Lock()
 _build_lock = threading.Lock()
 _libs: dict = {}
 
-# launches and output lanes per kernel since the last reset_launches()
+# launches and output lanes per kernel since the last reset_launches();
+# point_add_narrow: those of point_add (either K2 entry) that took the
+# narrow shape, a part of point_add's count and not a kernel of its own
 LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
             "point_add": 0, "point_double": 0, "mont_mul8": 0,
             "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq12_mul": 0,
-            "fq_inv": 0, "miller_step": 0}
+            "fq_inv": 0, "miller_step": 0, "point_add_narrow": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
+# the counters that count a part of another kernel's launches
+PART_COUNTERS = ("point_add_narrow",)
 # while recording: kernel -> (output lanes, args) of its widest launch
 WIDEST: dict = {}
 _recording = False
@@ -185,10 +189,12 @@ def _so_path(build_dir: str, src: str, tag: str) -> str:
 
 def kernel_label(mangled: str) -> str:
     """A readable name for a kernel's mangled symbol, e.g.
-    point_add_kernel<Limbs16>, mont_mul_kernel<0>. Every digit run is
-    read as a length-prefixed name; the shortest such name that ends in
-    _kernel is the kernel's (a longer one spans a digit inside an
-    anonymous namespace's own name, such as _GLOBAL__N__40dd78b_...)."""
+    point_add_kernel<Limbs16>, mont_mul_kernel<0>,
+    narrow::point_add_kernel<Limbs16> (a namespace inside h2v is kept).
+    Every digit run is read as a length-prefixed name; the shortest such
+    name that ends in _kernel is the kernel's (a longer one spans a digit
+    inside an anonymous namespace's own name, such as
+    _GLOBAL__N__40dd78b_...)."""
     names = [mangled[i + len(m.group()):i + len(m.group()) + int(m.group())]
              for i in range(len(mangled))
              if (m := re.match(r"\d+", mangled[i:]))]
@@ -198,6 +204,11 @@ def kernel_label(mangled: str) -> str:
         return mangled
     arg = (re.search(r"_kernelILi(\d+)E", mangled)
            or re.search(r"(Limbs\d+)", mangled))
+    inner = re.match(r"_ZN3h2v(\d+)", mangled)
+    if inner:
+        ns = mangled[inner.end():inner.end() + int(inner.group(1))]
+        if ns != name:
+            name = f"{ns}::{name}"
     return name + (f"<{arg.group(1)}>" if arg else "")
 
 
@@ -298,6 +309,7 @@ SIGNATURES = {
         "h2v_point_add_scatter": [_VP, _VP, _VP, _LL, _VP, _VP]
         + [_VP, _VP, _VP, _LL] + [_VP, _VP, _LL] + [_VP, _VP, _VP, _LL, _VP],
         "h2v_capture_nodes": [_VP, _VP],
+        "h2v_point_add_narrow_below": [],
     },
     "point_double.cu": {"h2v_point_double": [_VP] * 6 + [_LL, _VP]},
     "mont_mul8.cu": {"h2v_mont_mul8": [_VP, _VP, _VP, _LL, _CI, _VP]},
@@ -535,8 +547,25 @@ def _point_add(name, fmt, src, p, q, mask, iL, iR):
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), b,
             _stream(p[0].device))
     _raise_on(rc, name)
-    _count(name, b, args)
+    if name == "point_add":
+        _count_point_add(b, args)
+    else:
+        _count(name, b, args)
     return out[0], out[1], out[2]
+
+
+def narrow_below() -> int:
+    """The add lanes below which a K2 launch takes the narrow shape
+    (csrc/point.cuh NarrowShape, the launcher's one rule)."""
+    return _lib("point_add.cu").h2v_point_add_narrow_below()
+
+
+def _count_point_add(lanes: int, args: tuple) -> None:
+    """Count a K2 launch of `lanes` add lanes, and in point_add_narrow
+    too where it took the narrow shape."""
+    _count("point_add", lanes, args)
+    if lanes < narrow_below():
+        _count("point_add_narrow", lanes, args)
 
 
 def point_add(p, q, mask=None, iL=None, iR=None):
@@ -562,7 +591,8 @@ def point_add_scatter(f, iL, iR, pos, keys, grid):
     plan, keys included, on the host). Returns the level's (X, Y, Z), (16,
     B) views into one (3, 16, B) tensor (B = 0 without add lanes). Counted
     as a point_add launch of B lanes, the add alone (the scatter lanes add
-    nothing), with point_add's arguments for those lanes."""
+    nothing), with point_add's arguments for those lanes, and as a
+    point_add_narrow one where B < narrow_below()."""
     name = "point_add_scatter"
     _check_limbs(name, "u16", *f, *grid)
     wf, wg = f[0].shape[1], grid[0].shape[1]
@@ -598,7 +628,7 @@ def point_add_scatter(f, iL, iR, pos, keys, grid):
             pos.data_ptr(), keys.data_ptr(), s,
             *(c.data_ptr() for c in grid), wg, _stream(f[0].device))
     _raise_on(rc, name)
-    _count("point_add", b, (f, f, None, iL, iR))
+    _count_point_add(b, (f, f, None, iL, iR))
     return out[0], out[1], out[2]
 
 

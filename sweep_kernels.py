@@ -15,11 +15,18 @@ point_add: the masked point adds, K2 (csrc/point_add.cu, 16-bit limbs)
 and K5 (csrc/point_add8.cu, 8-bit limbs in float32), per body and launch
 shape (point.cuh AddShape): the unrolled or the rolled body, and block
 size x minimum blocks per SM, the `__launch_bounds__` pair that caps
-registers at 65,536 / (block x blocks). Launches:
+registers at 65,536 / (block x blocks), each with no launch narrow; and
+K2's narrow shape (point.cuh NarrowShape) per threads per output lane x
+block size, every launch narrow. Launches:
 - scan: 532,480 lanes reading one frontier at i and i - 1, 97 % of the
   lanes adding (the scan's level 0, one k=14 batch);
 - forest: 266,240 lanes gathering pairs from a 524,288-lane frontier, no
-  mask (the forest's first level).
+  mask (the forest's first level);
+- pairs_<n>: n lanes adding lanes 2i and 2i + 1 of a 2n-lane frontier
+  (the chain's narrow levels, folds and Horner steps), at the chain's
+  widths; pairs_64_scatter: the same at 64 lanes through
+  h2v_point_add_scatter with no scatter lanes (the forest levels'
+  entry).
 
 sqrt: the decomp pre-pass's square root (csrc/mont_mul.cu
 h2v_sqrt_principal), per block size, exponent window and lanes per thread
@@ -88,37 +95,59 @@ ACTIVE_SHARE = 0.97
 SQRT_LANES = (15360, 32)
 TOWER_LANES = (1, 2, 16384)
 DOUBLE_LANES = (524288, 32)
+# the packed chain's point-add widths below the wide shape's full card: the
+# Horner steps, the folds, the deep forest levels (k=14 and k=9 batches)
+NARROW_LANES = (64, 512, 1024, 2048, 4096, 8192, 12288, 16384, 20480,
+                28672, 32768, 36864)
 
 
 class PointAdd:
     """K2 and K5 per body x (block size, minimum blocks per SM): no cap,
-    then caps of 168 and 128 registers."""
+    then caps of 168 and 128 registers, no launch narrow; then K2's
+    narrow shape per (threads per lane, block size), every launch narrow
+    (the wide shape as shipped)."""
 
     header = "point.cuh"
     build_sources = ("point_add.cu", "point_add8.cu")
-    sources = {"point_add": "point_add.cu", "point_add8": "point_add8.cu"}
+    sources = {"point_add": "point_add.cu",
+               "point_add_scatter": "point_add.cu",
+               "point_add8": "point_add8.cu"}
     labels = dict.fromkeys(sources, "point_add_kernel")
-    variants = [(body, shape) for body in ("unrolled", "rolled")
-                for shape in ((64, 1), (64, 6), (64, 8), (128, 1), (128, 3),
-                              (128, 4), (256, 1), (256, 2), (512, 1))]
-    # AddShape's fields, set alike for both limb formats in a variant
+    variants = ([(body, shape) for body in ("unrolled", "rolled")
+                 for shape in ((64, 1), (64, 6), (64, 8), (128, 1), (128, 3),
+                               (128, 4), (256, 1), (256, 2), (512, 1))]
+                + [("narrow", (group, block)) for group in (4, 8)
+                   for block in (32, 64, 128)])
+    # AddShape's fields, set alike for both limb formats in a variant, and
+    # NarrowShape's
     fields = {"kThreads": r"static constexpr int kThreads = \d+;",
               "kMinBlocks": r"static constexpr int kMinBlocks = \d+;",
-              "kRolled": r"static constexpr bool kRolled = (?:true|false);"}
-    matches = 2
+              "kRolled": r"static constexpr bool kRolled = (?:true|false);",
+              "kGroup": r"static constexpr int kGroup = \d+;",
+              "kBlock": r"static constexpr int kBlock = \d+;",
+              "kBelow": r"static constexpr int kBelow = \d+;"}
+    matches = {"kThreads": 2, "kMinBlocks": 2, "kRolled": 2, "kGroup": 1,
+               "kBlock": 1, "kBelow": 1}
 
     @staticmethod
     def name(v):
-        body, (block, blocks) = v
-        return f"{body}_{block}x{blocks}"
+        body, (a, b) = v
+        return f"narrow_g{a}_{b}" if body == "narrow" else f"{body}_{a}x{b}"
 
     @staticmethod
     def values(v):
-        body, (block, blocks) = v
-        return {"kThreads": f"int kThreads = {block};",
-                "kMinBlocks": f"int kMinBlocks = {blocks};",
+        """The fields a variant sets (a narrow one leaves AddShape as it
+        is)."""
+        body, (a, b) = v
+        if body == "narrow":
+            return {"kGroup": f"int kGroup = {a};",
+                    "kBlock": f"int kBlock = {b};",
+                    "kBelow": f"int kBelow = {1 << 30};"}
+        return {"kThreads": f"int kThreads = {a};",
+                "kMinBlocks": f"int kMinBlocks = {b};",
                 "kRolled": f"bool kRolled = "
-                           f"{'true' if body == 'rolled' else 'false'};"}
+                           f"{'true' if body == 'rolled' else 'false'};",
+                "kBelow": "int kBelow = 0;"}
 
     @staticmethod
     def cases(torch, np, dev):
@@ -141,6 +170,13 @@ class PointAdd:
         work = {("point_add", "scan"): (scan16, scan16, mask, None, partner),
                 ("point_add8", "scan"): (scan8, scan8, mask, None, partner),
                 ("point_add", "forest"): (forest, forest, None, iL, iR)}
+        for n in NARROW_LANES:
+            f = frontier(torch, np, rng, 2 * n, dev)
+            j = torch.arange(n, dtype=torch.int32, device=dev)
+            work[("point_add", f"pairs_{n}")] = (f, f, None, 2 * j, 2 * j + 1)
+            if n == NARROW_LANES[0]:
+                work[("point_add_scatter", f"pairs_{n}_scatter")] = (
+                    f, f, None, 2 * j, 2 * j + 1)
         for (kname, _launch), args in work.items():
             ops = curve.OPS8 if kname == "point_add8" else curve.OPS16
             yield (kname, _launch), args, (
@@ -148,7 +184,11 @@ class PointAdd:
 
     @staticmethod
     def launch(torch, entries, kname, args):
-        fn = entries[f"h2v_{kname}"]
+        """(run, outputs), or (None, None) for a version without the
+        entry (a --parent from before h2v_point_add_scatter)."""
+        fn = entries.get(f"h2v_{kname}")
+        if fn is None:
+            return None, None
         p, q, mask, iL, iR = args
         rows = 32 if kname == "point_add8" else 16
         dtype = torch.float32 if kname == "point_add8" else torch.int32
@@ -159,14 +199,18 @@ class PointAdd:
             return None if t is None else t.data_ptr()
 
         def run():
+            stream = torch.cuda.current_stream().cuda_stream
+            outs = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
+            if kname == "point_add_scatter":  # p is q; no scatter lanes
+                return fn(*(c.data_ptr() for c in p), p[0].shape[1],
+                          ptr(iL), ptr(iR), *outs, b, None, None, 0,
+                          None, None, None, 0, stream)
             return fn(*(c.data_ptr() for c in p), p[0].shape[1],
                       *(c.data_ptr() for c in q), q[0].shape[1], ptr(iL),
                       ptr(iR),
                       None if mask is None
                       else mask.view(torch.uint8).data_ptr(),
-                      out[0].data_ptr(), out[1].data_ptr(),
-                      out[2].data_ptr(), b,
-                      torch.cuda.current_stream().cuda_stream)
+                      *outs, b, stream)
         return run, tuple(out)
 
 
@@ -544,9 +588,10 @@ def frontier(torch, np, rng, width, dev):
 
 
 def make_variant(kind, csrc, root, name, v=None):
-    """Copy csrc into root/name/csrc; with a variant v, set its shape
-    fields in the kind's header (which must hold them as in this
-    checkout)."""
+    """Copy csrc into root/name/csrc; with a variant v, set the shape
+    fields it names in the kind's header (which must hold them as in this
+    checkout; `matches` times each, one count for every field or a count
+    per field)."""
     dst = os.path.join(root, name, "csrc")
     shutil.rmtree(os.path.dirname(dst), ignore_errors=True)
     shutil.copytree(csrc, dst)
@@ -554,10 +599,12 @@ def make_variant(kind, csrc, root, name, v=None):
         path = os.path.join(dst, kind.header)
         with open(path) as f:
             text = f.read()
-        for field, pattern in kind.fields.items():
-            text, n = re.subn(pattern, "static constexpr "
-                              + kind.values(v)[field], text)
-            if n != kind.matches:
+        for field, value in kind.values(v).items():
+            text, n = re.subn(kind.fields[field], "static constexpr "
+                              + value, text)
+            want = (kind.matches[field] if isinstance(kind.matches, dict)
+                    else kind.matches)
+            if n != want:
                 raise RuntimeError(f"{kind.header} no longer holds its "
                                    f"shape field {field}")
         with open(path, "w") as f:
@@ -592,7 +639,7 @@ def build_all(kernels, kind, variants):
                     entries[entry] = fn
         for kname, src in kind.sources.items():
             found = [(k, r) for k, r in report[src].items()
-                     if k.startswith(kind.labels[kname])]
+                     if kind.labels[kname] in k]
             if not found and not hasattr(kind, "composed"):
                 raise RuntimeError(f"{name}: no {kind.labels[kname]} in "
                                    f"{src}'s build, only {list(report[src])}")
@@ -678,6 +725,9 @@ def main(argv=None):
             if rep.get("spill_bytes"):
                 continue
             fn, out = kind.launch(torch, entries, kname, case)
+            if fn is None:
+                row["no_entry"] = True
+                continue
 
             def run(fn=fn):
                 rc = fn()
