@@ -27,8 +27,8 @@ Phases, one output line each (JSON unless noted):
    against P + P as
    affine points and every 8-bit-limb output against the re-limbed
    16-bit-limb kernel's; the 8-bit-limb outputs' range; the device
-   pairing's tower kernels (Fq add/sub/neg, the Fq12 linear maps, the
-   fused Fq12 multiply and square, the Fermat inversion for Fq and Fr,
+   pairing's tower kernels (Fq add/sub/neg, the fused Fq12 multiply and
+   square, the Fermat inversion for Fq and Fr,
    the Miller step in both modes) at the pairing's widths and at 16,384
    lanes, with edge operands; the
    device pairing check: Miller lanes against the host oracle, good and
@@ -39,11 +39,11 @@ Phases, one output line each (JSON unless noted):
 4. one forest MSM and one scan MSM per limb backend of a main-path batch's
    size (16,640 random scalars and points in groups of 1,024 and 15,616)
    against the exact host MSM, the f8 window totals bit-equal to the
-   re-limbed u16 totals; the forest's packed dispatch at that size
+   re-limbed u16 totals; the forest's dispatch at that size
    (packed_parity): four pinned batches through one slot of recordings,
-   a re-pin among them, each batch's totals bit-equal to the flat
-   chain's and its launches, counted through the replays, the flat
-   chain's and one point add more (the deepest part's scatter lanes),
+   a re-pin among them, each batch's points equal to the host MSM's (the
+   first's totals bit-equal to the same chain's on the CPU) and its
+   launches, counted through the replays, those its layout gives (L + 23),
    each recording's graph nodes its launches and one copy;
 5. the main paths, each with every kernel's launch count set to 0 just
    before and read just after, and each refused if a kernel outside its
@@ -51,14 +51,11 @@ Phases, one output line each (JSON unless noted):
    streamed batches of 1,024 k=14 mac_range proofs (the committed pack
    tiled, as bench.py does), every batch ok, through the VM fast path,
    with the forest MSM (the frontier, point-add and square-root kernels;
-   no Montgomery multiply) on its default dispatch on the card, "packed"
-   (plan widths pinned, one packed upload, the chain recorded once per
-   pinned signature and replayed; each forest stream's line gives its
-   device_msm_dispatch per batch split into its parts, its recordings,
-   replays and re-pins and the recordings' memory pool), then the split
-   of "flat" against "packed" on warm verifiers, interleaved rounds of
-   8 batches, 32 batches each (dispatch_split), then with msm="scan" in
-   "u16" (8 batches) and "f8" (4);
+   no Montgomery multiply; plan widths pinned, one packed upload, the
+   chain recorded once per pinned signature and replayed; each forest
+   stream's line gives its device_msm_dispatch per batch split into its
+   parts, its recordings, replays and re-pins and the recordings' memory
+   pool), then with msm="scan" in "u16" (8 batches) and "f8" (4);
    for the forest and the scan, a 64-proof batch with one public input
    changed by +1, which must fail at that index; the doubling through its
    public entry, ops/curve.double (no verifier path doubles on the
@@ -68,9 +65,7 @@ Phases, one output line each (JSON unless noted):
    batch, and strategy="single" with the device pairing on 8 proofs, one
    tampered (only K1, T1, the Fq12 multiply, T3 and the Miller step
    launch: the single strategy's
-   MSMs run on the host); T2 through its entry, ops/pairing.py
-   _linear_combine, on the three Fq12 maps at 16,384 lanes (the pairing
-   runs its maps inside the fused multiply); the limb-minor layer
+   MSMs run on the host); the limb-minor layer
    (minor_path: ops/field_minor.py and ops/curve_minor.py on (..., 16)
    limbs, which no verifier path runs): mont_mul, add and sub on Fq and
    Fr at (2, 266,240, 16), the curve add at 266,240 lanes, the doubling
@@ -119,8 +114,8 @@ Phases, one output line each (JSON unless noted):
    version and the bound,
    and the square root also at 32 lanes (one warp: one chain's latency),
    K1 also at the device pairing's widest launch;
-   the whole device stage of phase 4's batch-sized forest (flat, and
-   packed on the pinned plan) and scans; the
+   the whole device stage of phase 4's batch-sized forest (on the pinned
+   plan, replayed) and scans; the
    device busy share of a profiled stream on the warm verifier, whose
    trace must hold as many frontier and point-add events as their
    wrappers counted (1 and 30 per batch, through the replays).
@@ -169,20 +164,17 @@ SCAN_BATCHES = {"u16": 8, "f8": 4}
 K9_BATCH = 256                       # bench.py run_extras' defaults
 K9_BATCHES = 7                       # (H2V_BENCH_EXTRA_BATCH, _BATCHES)
 FOREST_KERNELS = ("forest_frontier0", "point_add", "sqrt_principal")
-# the forest's launches per main-path batch on the packed dispatch (9
-# levels, the deepest part's scatter, 7 folds, 14 Horner steps), and a
+# the forest's launches per main-path batch, one chain (9 levels, the
+# deepest part's scatter, 7 folds, 14 Horner steps), and a
 # piece of each kernel's name in a profiler trace
 FOREST_PER_BATCH = {"forest_frontier0": 1, "point_add": 31}
 FOREST_TRACE_NAMES = {"forest_frontier0": "frontier0_kernel",
                       "point_add": "point_add_kernel<h2v::Limbs16>"}
 # the forest dispatch's parts, as the orchestrator times them inside
-# device_msm_dispatch (msm_forest.dispatch_planned and _fuse3)
+# device_msm_dispatch (msm_forest.dispatch_planned)
 DISPATCH_PARTS = ("dispatch_plan", "dispatch_check", "dispatch_pack",
                   "dispatch_h2d", "dispatch_launch", "dispatch_record",
                   "dispatch_prefetch")
-SPLIT_WARM_BATCHES = 2               # per dispatch, before the A/B rounds
-SPLIT_ROUND_BATCHES = 8              # rounds in the order A B B A A B B A
-SPLIT_ROUNDS = ("flat", "packed", "packed", "flat") * 2
 MESH_KERNELS = ("forest_frontier0", "point_add")  # host decompression
 MESH_BATCHES = 8                     # the NCCL world of one
 MESH_RANKS = 4                       # gloo ranks sharing the card
@@ -198,8 +190,8 @@ SINGLE_TAMPER_INDEX = 5
 PAIRING_REPS = 5                     # checks timed, median reported
 # kernel launches of one device pairing check of two live pairs, as the
 # dispatch counts them (tests/test_torch_fq12_fused.py)
-PAIRING_LAUNCHES = {"mont_mul": 13, "fq_addsub": 501, "fq_linmap": 0,
-                    "fq12_mul": 1318, "fq_inv": 1, "miller_step": 102}
+PAIRING_LAUNCHES = {"mont_mul": 13, "fq_addsub": 501, "fq12_mul": 1318,
+                    "fq_inv": 1, "miller_step": 102}
 
 # Bound model: the least time of an operation count is the longest of the
 # SM's pipes that must run it (NVIDIA CUDA C++ Programming Guide,
@@ -729,8 +721,8 @@ def phase_frontier(torch, np, msm_forest, forest_inputs, dev):
     plan (every point gathered once per nonzero window digit; the identity
     pad's index) and points, a few of them set to (0, 0), against the
     plain version."""
-    x_np, y_np, plan, _dev = forest_inputs
-    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    x_np, y_np, plan, _dev, _totals = forest_inputs
+    xs, ys = msm_forest.pad_transpose_points(x_np, y_np, plan["n_pad"])
     xs[:, ::997] = 0  # identity points among the real ones
     ys[:, ::997] = 0
     X = torch.from_numpy(xs.view(np.int32)).to(dev)
@@ -749,8 +741,9 @@ def phase_frontier(torch, np, msm_forest, forest_inputs, dev):
 
 
 def phase_forest(torch, np, hc, msm_forest, msm, ints_to_limbs, dev):
-    """Returns the phase line, the forest's device-stage inputs, and the
-    case (scalar limbs, point limbs, sizes, the host MSM's answers)."""
+    """Returns the phase line, the forest's device-stage inputs with its
+    window totals, and the case (scalar limbs, point limbs, sizes, the
+    host MSM's answers)."""
     from halo2_verifier_tpu_torch.ops.constants import G1_GEN, R
 
     sizes = list(FOREST_SIZES)
@@ -762,14 +755,16 @@ def phase_forest(torch, np, hc, msm_forest, msm, ints_to_limbs, dev):
     t0 = time.time()
     s_np = ints_to_limbs(sc)
     plan = msm_forest.host_plan(s_np, sizes)
-    arr = msm_forest.dispatch_planned(x, y, plan, dev)
-    got = msm.combine_window_totals_grouped(arr.cpu().numpy(), len(sizes))
+    arr = msm_forest.dispatch_planned(x, y, plan, dev,
+                                      msm_forest.ForestRecordings(1))
+    totals = arr.cpu().numpy()
+    got = msm.combine_window_totals_grouped(totals, len(sizes))
     dt = time.time() - t0
     want = [hc.g1_msm(sc[:sizes[0]], pts[:sizes[0]]),
             hc.g1_msm(sc[sizes[0]:], pts[sizes[0]:])]
     return ({"phase": "forest_msm", "points": len(pts), "groups": sizes,
              "equal_to_host_msm": got == want, "seconds": round(dt, 3)},
-            (x, y, plan, dev), (s_np, x, y, sizes, want))
+            (x, y, plan, dev, totals), (s_np, x, y, sizes, want))
 
 
 def phase_scan_msm(torch, msm_scan, msm, weights, case, dev):
@@ -873,7 +868,7 @@ def phase_stream(torch, kernels, fixture, BatchVerifier, n_batches, phase,
     }
     if verifier_args.get("msm", "forest") == "forest" and "mesh" not in \
             verifier_args:
-        result.update(forest_dispatch_record(bv, n_batches))
+        result.update(forest_stream_record(bv, n_batches))
     record = {"launches": launches, "lanes": lanes, "widest": widest,
               "batches": n_batches}
     return result, record, bv
@@ -890,13 +885,12 @@ def dispatch_split(timings, n_batches):
             "split_ms_per_batch": {k: round(v, 4) for k, v in per.items()}}
 
 
-def forest_dispatch_record(bv, n_batches):
-    """A single-device forest stream's dispatch, its split, and its
+def forest_stream_record(bv, n_batches):
+    """A single-device forest stream's dispatch split, and its
     recordings: made, replaced by a re-pin, replays, re-pins, and the
     live recordings' private memory pools."""
     recs = bv.forest_recordings
-    return {"forest_dispatch": bv.forest_dispatch,
-            **dispatch_split(bv.timings, n_batches),
+    return {**dispatch_split(bv.timings, n_batches),
             "recordings": recs.recorded,
             "recordings_replaced": recs.replaced,
             "recordings_evicted": recs.evicted,
@@ -929,8 +923,7 @@ def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
     if verifier_args.get("msm", "forest") == "forest" and "mesh" not in \
             verifier_args:
         recs = bv.forest_recordings
-        line.update(forest_dispatch=bv.forest_dispatch,
-                    pin_keys=sorted(bv._plan_pins),
+        line.update(pin_keys=sorted(bv._plan_pins),
                     recordings=recs.recorded,
                     recordings_replaced=recs.replaced,
                     recordings_evicted=recs.evicted, replays=recs.replays,
@@ -939,79 +932,45 @@ def phase_tamper(torch, kernels, BatchVerifier, fixture, phase,
     return line
 
 
-def phase_dispatch_split(torch, fixture, BatchVerifier):
-    """The forest dispatch split on the card, "flat" against "packed":
-    one warm verifier per dispatch (SPLIT_WARM_BATCHES batches each
-    first, untimed), then SPLIT_ROUNDS of SPLIT_ROUND_BATCHES streamed
-    batches each, interleaved A B B A ..., so both dispatches see the
-    same host; per dispatch, device_msm_dispatch per batch and its parts,
-    the main thread's ms per batch and each round's paced rate."""
-    from halo2_verifier_tpu_torch.utils.metrics import StageTimings
-
-    params, vk, items = fixture
-    batch = tile(items, BATCH)
-    bvs = {}
-    for name in ("flat", "packed"):
-        bvs[name] = BatchVerifier(params, vk, forest_dispatch=name)
-        for r in bvs[name].verify_stream(
-                batch for _ in range(SPLIT_WARM_BATCHES)):
-            if not r.ok:
-                raise AssertionError(f"dispatch_split: a {name} warm-up "
-                                     "batch failed")
-        bvs[name].timings = StageTimings()
-    rates = {name: [] for name in bvs}
-    for name in SPLIT_ROUNDS:
-        stamps = []
-        for r in bvs[name].verify_stream(
-                batch for _ in range(SPLIT_ROUND_BATCHES)):
-            stamps.append(time.time())
-            if not r.ok:
-                raise AssertionError(f"dispatch_split: a {name} batch "
-                                     "failed")
-        rates[name].append(round((len(stamps) - 3) * BATCH
-                                 / (stamps[-3] - stamps[0]), 1))
-    torch.cuda.synchronize()
-    res = {"phase": "dispatch_split", "batch_size": BATCH,
-           "order": list(SPLIT_ROUNDS), "round_batches": SPLIT_ROUND_BATCHES}
-    for name, bv in bvs.items():
-        n = SPLIT_ROUND_BATCHES * SPLIT_ROUNDS.count(name)
-        t = bv.timings.totals
-        res[name] = {
-            "batches": n, **dispatch_split(bv.timings, n),
-            "main_thread_ms_per_batch": round(sum(
-                t[k] for k in ("host_replay", "host_assemble",
-                               "device_msm_dispatch")) / n * 1e3, 4),
-            "host_replay_ms_per_batch": round(t["host_replay"] / n * 1e3, 4),
-            "proofs_per_s_paced_by_round": rates[name],
-            "recordings": bv.forest_recordings.recorded,
-            "replays": bv.forest_recordings.replays,
-            "plan_repins": bv.plan_repins}
-    return res
+def forest_chain_counts(kernels, msm_forest, layout):
+    """({kernel: launches}, {kernel: lanes}) of one forest chain on the
+    card, from its layout: the frontier, one point add per level and one
+    for the deepest part (no add lanes), 7 folds and 14 Horner steps
+    (L + 23 launches), the narrow ones among them in point_add_narrow."""
+    tw = layout.tw
+    adds = ([w for _oL, _oR, w in layout.levels] + [0]
+            + [tw * msm_forest.WINDOW_BITS << k for k in range(7)]
+            + [tw] * 14)
+    narrow = [b for b in adds if b < kernels.narrow_below()]
+    return ({"forest_frontier0": 1, "point_add": len(adds),
+             "point_add_narrow": len(narrow)},
+            {"forest_frontier0": layout.w0, "point_add": sum(adds),
+             "point_add_narrow": sum(narrow)})
 
 
-def phase_packed_parity(torch, np, kernels, msm_forest, case):
-    """The packed dispatch's recordings at a main-path batch's size (phase
+def phase_packed_parity(torch, np, hc, kernels, msm, msm_forest, case):
+    """The forest dispatch's recordings at a main-path batch's size (phase
     4's points, groups of 1,024 and 15,616): a narrow batch (phase 4's
     scalars cut to 128 bits), then phase 4's batch (it outgrows the pin: a
     new recording replaces the first), another random batch, and phase
-    4's batch again (a replay, its pin covering it). Each batch's window
-    totals bit-equal to the flat chain's on the same pinned plan, its
-    lanes (the packed ones counted through the replays) equal to the flat
-    chain's and its launches too, but for the packed chain's one more
-    point add (the deepest part's scatter lanes); each recording's graph
-    nodes are its package launches and the grid's one copy; the
-    recordings' private pool and the time of each recording and
-    replay."""
+    4's batch again (a replay, its pin covering it). Each batch's points
+    equal the host MSM's and its launches and lanes (counted through the
+    replays) those its layout gives; the narrow batch's totals are
+    bit-equal to the same chain's on the CPU (the plain versions, some
+    tens of seconds at this size, so once); each recording's graph nodes
+    are its package launches and the grid's one copy; the recordings'
+    private pool and the time of each recording and replay."""
     from halo2_verifier_tpu_torch.ops.constants import R
-    from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
+    from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_ints
     from halo2_verifier_tpu_torch.utils.metrics import StageTimings
 
-    s_np, x, y, sizes, _want = case
+    s_np, x, y, sizes, want_full = case
     narrow = s_np.copy()
     narrow[:, 8:] = 0
     rng = np.random.default_rng(17)
     other = ints_to_limbs([int.from_bytes(rng.bytes(32), "little") % R
                            for _ in range(s_np.shape[0])])
+    pts = list(zip(limbs_to_ints(x), limbs_to_ints(y)))
     dev = torch.device("cuda")
     recs = msm_forest.ForestRecordings()
     pin = None
@@ -1021,23 +980,33 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
                      ("full_again", s_np)):
         plan, pin = msm_forest.pin_plan_widths(
             msm_forest.host_plan(sc, sizes), pin)
-        kernels.reset_launches()
-        flat = msm_forest.dispatch_planned(x, y, plan, dev)
-        torch.cuda.synchronize()
-        want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
-        want[0]["point_add"] += 1          # the deepest part's scatter lanes,
-        want[0]["point_add_narrow"] += 1   # a launch of 0 add lanes
+        want = forest_chain_counts(kernels, msm_forest,
+                                   msm_forest.packed_layout(plan))
         kernels.reset_launches()
         timings = StageTimings()
         t0 = time.perf_counter()
-        got = msm_forest.dispatch_planned_fuse3(
+        got = msm_forest.dispatch_planned(
             x, y, plan, dev, recordings=recs, slot="parity",
             timings=timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        equal = bool(torch.equal(got, flat))
-        err = max(err, max_abs_err(torch, got, flat))
-        same_launches = (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
+        launched = ({k: v for k, v in kernels.LAUNCHES.items() if v},
+                    {k: v for k, v in kernels.LANES.items()
+                     if kernels.LAUNCHES[k]})
+        same_launches = launched == want
+        if name in ("full", "full_again"):
+            host = want_full
+        else:
+            ss = limbs_to_ints(sc)
+            host = [hc.g1_msm(ss[a:b], pts[a:b]) for a, b in
+                    ((0, sizes[0]), (sizes[0], sum(sizes)))]
+        equal_host = msm.combine_window_totals_grouped(
+            got.cpu().numpy(), len(sizes)) == host
+        equal_cpu = None
+        if name == "narrow":
+            cpu = msm_forest.dispatch_planned(x, y, plan, "cpu")
+            equal_cpu = bool(torch.equal(got.cpu(), cpu))
+            err = max(err, max_abs_err(torch, got.cpu(), cpu))
         nodes, tally = recs.counts("parity")
         no_glue = nodes == {"kernel": sum(
                                 n for n, _ in kernel_counts(kernels,
@@ -1046,16 +1015,19 @@ def phase_packed_parity(torch, np, kernels, msm_forest, case):
         rows.append({
             "batch": name, "level_widths": [int(plan["point_idx0"].shape[0])]
             + [int(iL.shape[0]) for iL, _ in plan["levels"]],
-            "totals_equal_flat": equal, "launches_equal_flat": same_launches,
+            "equal_to_host_msm": equal_host,
+            "totals_equal_cpu_chain": equal_cpu,
+            "launches_equal_layout": same_launches,
             "graph_nodes": nodes, "graph_nodes_are_launches": no_glue,
-            "launches": {k: v for k, v in want[0].items() if v},
+            "launches": want[0],
             "recorded": "dispatch_record" in timings.totals,
             "ms": round(wall * 1e3, 3),
             "record_ms": round(timings.totals.get("dispatch_record", 0)
                                * 1e3, 3)})
-        if not (equal and same_launches and no_glue):
-            raise AssertionError(f"packed_parity: batch {name} differs from "
-                                 "the flat chain")
+        if not (equal_host and equal_cpu is not False and same_launches
+                and no_glue):
+            raise AssertionError(f"packed_parity: batch {name} differs: "
+                                 f"{rows[-1]}")
     if recs.replays < 1 or recs.replaced < 1:
         raise AssertionError("packed_parity: no replay after a re-pin")
     return {"phase": "packed_parity", "tolerance": 0, "groups": list(sizes),
@@ -1244,38 +1216,6 @@ def phase_double_path(torch, np, hc, fm, curve, kernels, ints_to_limbs, dev):
     return ({"phase": "double_path", "entry": "ops/curve.double",
              "lanes": POINT_DOUBLE_WIDTH, "equal_to_host_curve": ok,
              "launches": record["launches"]}, record)
-
-
-def phase_linmap_path(torch, np, fm, tp, kernels, ints_to_limbs, dev):
-    """T2's path: its entry, ops/pairing.py _linear_combine (the Fq12
-    multiply runs its maps inside its own launch, so the device pairing
-    launches no T2), on the three Fq12 maps at 16,384 lanes of the tower
-    operands; counts are set to 0 just before and read just after, and
-    each output is held against the plain version."""
-    rng = np.random.default_rng(13)
-    width = max(TOWER_WIDTHS)
-    kernels.reset_launches(record=True)
-    outs = []
-    for M in (tp._FQ12_MA, tp._FQ12_MB, tp._FQ12_MC):
-        k = M.shape[1]
-        vals = np.concatenate([tower_operands(
-            np, rng, fm.FQ.modulus, ints_to_limbs, width)[0]
-            for _ in range(k)], axis=1)
-        X = torch.from_numpy(vals.astype(np.int32)).to(dev).reshape(
-            16, k, width)
-        outs.append((tp._linear_combine(X, M), X, M))
-    torch.cuda.synchronize()
-    record = {"launches": dict(kernels.LAUNCHES),
-              "lanes": dict(kernels.LANES), "widest": dict(kernels.WIDEST),
-              "batches": 1}
-    err = max(max_abs_err(torch, got, tp.linear_combine_plain(X, M))
-              for got, X, M in outs)
-    if record["launches"]["fq_linmap"] != 3 or sum(
-            record["launches"].values()) != 3:
-        raise AssertionError(f"linmap_path: launches {record['launches']}")
-    return ({"phase": "linmap_path", "entry": "ops/pairing.py "
-             "_linear_combine", "lanes": width, "maps": ["MA", "MB", "MC"],
-             "max_abs_err": err, "launches": record["launches"]}, record)
 
 
 def timed_once(torch, fn):
@@ -1562,8 +1502,7 @@ def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
     """The device pairing's tower kernels against their plain versions,
     bit for bit, at the pairing's widths (1 and 2 lanes: two live pairs)
     and at 16,384 lanes: T1 add, sub and neg (operand a a column slice of
-    a wider tensor, read at its own row stride), T2 on the three Fq12
-    maps, the fused Fq12 multiply and square on the edge pairs, T3 for Fq
+    a wider tensor, read at its own row stride), the fused Fq12 multiply and square on the edge pairs, T3 for Fq
     and Fr (0 -> 0 in the first lane), the Miller step in both modes on
     its edge lanes (px and py column slices of a wider tensor). Each
     kernel also timed at 16,384 lanes beside its plain version and its
@@ -1588,22 +1527,6 @@ def phase_tower(torch, np, card, fm, tp, kernels, ints_to_limbs, dev):
             checked.append(["fq_addsub", op, w, err])
     wide["fq_addsub"] = (A2[:, :max(TOWER_WIDTHS)],
                          up(b_np), kernels.FQ_ADD)
-    for name in ("_FQ12_MA", "_FQ12_MB", "_FQ12_MC"):
-        M = getattr(tp, name)
-        k = M.shape[1]
-        vals = np.concatenate([tower_operands(
-            np, rng, fm.FQ.modulus, ints_to_limbs, max(TOWER_WIDTHS))[0]
-            for _ in range(k)], axis=1)
-        X = up(vals).reshape(16, k, max(TOWER_WIDTHS))
-        for w in TOWER_WIDTHS:
-            args = (X[:, :, :w].contiguous(), tp._map_tensor(M, dev))
-            plain, _, _ = kernel_case("fq_linmap", args, None, fm, None,
-                                      None)
-            err = max_abs_err(torch, kernels.fq_linmap(*args), plain())
-            worst = max(worst, err)
-            checked.append(["fq_linmap", name, w, err])
-        if name == "_FQ12_MC":
-            wide["fq_linmap"] = args
     stacks = fq12_stacks(np, rng, ints_to_limbs, max(TOWER_WIDTHS))
     A, B = (up(x) for x in stacks)
     for w in TOWER_WIDTHS:
@@ -1673,7 +1596,7 @@ def phase_pairing(torch, np, card, tp, hp, hc, kernels, dev):
     of one check (median of PAIRING_REPS) beside the host pairing's on
     the same pairs; launches per check by kernel, which must be the
     dispatch's counts (PAIRING_LAUNCHES: the Fq12 multiply fused, one
-    Miller step kernel per step, no T2);
+    Miller step kernel per step);
     the profiler's count of device kernels and copies in one check and
     their device time."""
     from torch.autograd import DeviceType
@@ -1817,9 +1740,8 @@ def phase_mesh_path(torch, np, kernels, msm_forest, fixture, BatchVerifier,
     tampered batch. Returns the line and the stream's record."""
     from halo2_verifier_tpu_torch.parallel import dist, mesh as pmesh
 
-    x_np, y_np, plan, dev = forest_inputs
+    single = forest_inputs[-1]
     s_np, x, y, sizes, want = case
-    single = msm_forest.dispatch_planned(x_np, y_np, plan, dev).cpu().numpy()
     if not dist.init_distributed(coordinator=f"127.0.0.1:{free_port()}",
                                  num_processes=1, process_id=0,
                                  backend="nccl", timeout=300):
@@ -1877,9 +1799,8 @@ def phase_mesh_ranks(torch, np, card, case, forest_inputs, msm_forest):
     directory and write their reports there. Any rank failing fails the
     phase. Returns the line and each rank's launches over its three MSM
     kinds and its stream."""
-    x_np, y_np, plan, dev = forest_inputs
+    single = forest_inputs[-1]
     s_np, x, y, sizes, want = case
-    single = msm_forest.dispatch_planned(x_np, y_np, plan, dev).cpu().numpy()
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="h2v_mesh_") as work:
         np.savez(os.path.join(work, "case.npz"), s=s_np, x=x, y=y,
@@ -2068,12 +1989,9 @@ KERNELS = (
     ("fq_addsub", "halo2_verifier_tpu_torch/csrc/tower.cu",
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:44 _fadd, :48 "
      "_fsub, :52 _fneg", "device_pairing_path"),
-    ("fq_linmap", "halo2_verifier_tpu_torch/csrc/tower.cu",
-     "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:245 "
-     "_linear_combine with :211 _reduce_mod_p", "linmap_path"),
     ("fq12_mul", "halo2_verifier_tpu_torch/csrc/tower.cu",
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:461 fq12_mul "
-     "(:245 _linear_combine, :211 _reduce_mod_p and the K1 product of "
+     "(its maps, :245, with :211 _reduce_mod_p, and the K1 product of "
      "halo2_verifier_tpu/ops/lmfield.py:440)", "device_pairing_path"),
     ("fq_inv", "halo2_verifier_tpu_torch/csrc/tower.cu",
      "none (XLA): halo2_verifier_tpu/ops/pairing_jax.py:56 _finv "
@@ -2095,7 +2013,7 @@ KERNEL_FN = {
     "point_double": "point_double_kernel",
     "sqrt_principal": "sqrt_principal_kernel",
     "forest_frontier0": "frontier0_kernel",
-    "fq_addsub": "fq_addsub_kernel", "fq_linmap": "fq_linmap_kernel",
+    "fq_addsub": "fq_addsub_kernel",
     "fq12_mul": "fq12_mul_kernel", "fq_inv": "fq_inv_kernel",
     "miller_step": "miller_step_kernel",
 }
@@ -2165,19 +2083,6 @@ def kernel_case(name, args, curve, fm, f8, decomp):
         n_in = 1 if op == 2 else 2
         return plain, (n_in + 1) * LIMB_BYTES * b, ops(
             (b, ADD_SUB), (n_in * b, LOAD16), (b, STORE16))
-    if name == "fq_linmap":
-        from halo2_verifier_tpu_torch.ops.pairing import linear_combine_plain
-
-        x, m = args
-        M = m.cpu().numpy()
-        k, b = x.shape[1], x.shape[2]
-        n_out = M.shape[0]
-        # the function, not the kernel's schedule: the map (ops_linmap),
-        # each operand loaded once, each output stored once
-        return (lambda: linear_combine_plain(x, M),
-                LIMB_BYTES * (k + n_out) * b + 4 * M.size,
-                ops((b, ops_linmap(M)), (k * b, LOAD16),
-                    (n_out * b, STORE16)))
     if name == "fq12_mul":
         from halo2_verifier_tpu_torch.ops import pairing
 
@@ -2367,24 +2272,21 @@ def stage_ms(torch, fn, reps=10):
 
 
 def phase_forest_batch(torch, msm_forest, forest_inputs, case):
-    """The whole device stage (upload, conversion, forest levels, bucket
-    phase) of the batch-sized forest of phase 4, on its inputs: the flat
-    dispatch, and beside it the packed one on the pinned plan."""
+    """The whole device stage (pack, upload, conversion, forest levels,
+    bucket phase) of the batch-sized forest of phase 4 on its pinned plan,
+    through one slot of recordings."""
     plan_scalars, _x, _y, sizes, _want = case
-    x_np, y_np, plan, dev = forest_inputs
+    x_np, y_np, plan, dev, _totals = forest_inputs
     pinned, _pin = msm_forest.pin_plan_widths(
         msm_forest.host_plan(plan_scalars, sizes))
     recs = msm_forest.ForestRecordings()
     return {"phase": "timing_forest_batch",
             **stage_ms(torch, lambda: msm_forest.dispatch_planned(
-                x_np, y_np, plan, dev)),
-            "packed": {
-                **stage_ms(torch, lambda: msm_forest.dispatch_planned_fuse3(
-                    x_np, y_np, pinned, dev, recordings=recs)),
-                "basis": "pack, one H2D copy and one replay per call; "
-                         "the first call records",
-                "recordings": recs.recorded, "replays": recs.replays,
-                "recording_pool_bytes": recs.pool_bytes()},
+                x_np, y_np, pinned, dev, recordings=recs)),
+            "basis": "pack, one H2D copy and one replay per call; the "
+                     "first call records",
+            "recordings": recs.recorded, "replays": recs.replays,
+            "recording_pool_bytes": recs.pool_bytes(),
             "forest_levels": len(plan["levels"]),
             "level0_lanes": int(plan["point_idx0"].shape[0]),
             "entries": int(plan["entries"]), "plan_adds": int(plan["adds"])}
@@ -2411,8 +2313,7 @@ def phase_profile(torch, kernels, bv, fixture, n_batches):
     over the stream's wall time, and device time by kernel name. The
     trace also holds the counters to the device: each forest kernel's
     events in it must equal the launches its wrapper counted in the
-    stream (on the packed dispatch, the replays times the launches each
-    recording holds), FOREST_PER_BATCH per batch."""
+    stream (the replays times the launches each recording holds), FOREST_PER_BATCH per batch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2445,7 +2346,6 @@ def phase_profile(torch, kernels, bv, fixture, n_batches):
             "wall_seconds": round(wall, 4),
             "device_busy_seconds": round(busy_s, 4) if dev else None,
             "device_busy_share": round(busy_s / wall, 4) if dev else None,
-            "forest_dispatch": bv.forest_dispatch,
             "replays": bv.forest_recordings.replays - replays,
             "kernel_events_traced": traced, "launches_counted": counted,
             "device_ms_per_batch_by_name": {
@@ -2533,7 +2433,7 @@ def run(torch, card, dev, n_batches, make_verifier):
     if not emit(forest_res)["equal_to_host_msm"]:
         raise AssertionError("forest MSM differs from the host MSM")
     emit(phase_frontier(torch, np, msm_forest, forest_inputs, dev))
-    emit(phase_packed_parity(torch, np, kernels, msm_forest, case))
+    emit(phase_packed_parity(torch, np, hc, kernels, msm, msm_forest, case))
     scan_res, scan_inputs = phase_scan_msm(torch, msm_scan, msm, weights,
                                            case, dev)
     emit(scan_res)
@@ -2551,7 +2451,6 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(main_res)
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch"))
-    emit(phase_dispatch_split(torch, fixture, make_verifier))
     for backend, expect in (("u16", ("mont_mul", "point_add",
                                       "sqrt_principal")),
                             ("f8", ("mont_mul8", "point_add8",
@@ -2576,9 +2475,6 @@ def run(torch, card, dev, n_batches, make_verifier):
     emit(phase_tamper(torch, kernels, make_verifier, fixture,
                       "tampered_batch_device_pairing", pairing="device"))
     emit(phase_single(torch, kernels, make_verifier, fixture))
-    linmap_res, records["linmap_path"] = phase_linmap_path(
-        torch, np, fm, pairing, kernels, ints_to_limbs, dev)
-    emit(linmap_res)
     minor_res, minor_record = phase_minor_path(
         torch, np, hc, fm, field_minor, curve_minor, curve, kernels,
         ints_to_limbs, limbs_to_ints, dev)

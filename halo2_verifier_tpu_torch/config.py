@@ -2,7 +2,7 @@
 reference's axes — commitment scheme x multiopen verifier x transcript
 hash x strategy (lib.rs:33-40), plus the SerdeFormat enum
 (helpers.rs:7-19) — as one dataclass, with the same fields and
-defaults, and one field of the port's own (forest_dispatch)."""
+defaults."""
 
 from __future__ import annotations
 
@@ -19,10 +19,6 @@ class VerifierConfig:
     mesh_shape: tuple = ()            # () = one device; (D,) = D-rank MSM
     batch_size: int = 512             # proofs per stream batch
     localize_failures: bool = True    # bisect failing batches
-    # the port's own field: the forest MSM's dispatch, BatchVerifier's
-    # forest_dispatch ("packed" | "flat"; None = "packed" on CUDA, "flat"
-    # otherwise), which the reference reads from H2V_FOREST_* variables
-    forest_dispatch: str | None = None
 
     def make_verifier(self, params, vk, device=None, msm=None):
         """Build the batch verifier for this configuration on `device`
@@ -42,4 +38,4 @@ class VerifierConfig:
         return BatchVerifier(params, vk, multiopen=self.multiopen,
                              hash_name=self.hash, device=device, mesh=mesh,
                              strategy=self.strategy, pairing=self.pairing,
-                             forest_dispatch=self.forest_dispatch, **extra)
+                             **extra)

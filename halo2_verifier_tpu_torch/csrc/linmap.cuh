@@ -1,10 +1,10 @@
 // Exact linear maps over BN254 Fq and Fr with small integer coefficients:
-// the arithmetic of the device pairing's T2 (fq_linmap) and of the fused
-// Fq12 multiply (fq12_mul), both in tower.cu.
+// the arithmetic of the fused Fq12 multiply's three maps (fq12_mul in
+// tower.cu).
 //
 // What it computes: sum_j c_j x_j mod N, canonical, for canonical x_j and
-// small signed c_j: the function of pairing_jax `_linear_combine` with
-// `_reduce_mod_p`, so the result is the unique canonical residue that
+// small signed c_j: the function of pairing_jax.py's linear combine
+// (:245) with `_reduce_mod_p`, so the result is the unique canonical residue that
 // ops/pairing.py linear_combine_plain returns, bit for bit.
 //
 // Design: a multiply-accumulate per nonzero coefficient and ONE reduction

@@ -171,8 +171,8 @@ __constant__ uint32_t MONT_ONE_FQ[8] = {
 
 // A launch's scatter lanes (n of them, after the width output lanes):
 // lane j copies the point p[:, pos[j]] to g[:, key[j]] (rows wg apart),
-// its Y set to R where Y = Z = 0, the empty-bucket patch of
-// ops/msm_forest.py _bucket_grid. n = 0: no scatter lanes.
+// its Y set to R where Y = Z = 0, the empty-bucket patch (plain version
+// ops/msm_forest.py scatter_part_plain). n = 0: no scatter lanes.
 template <class L>
 struct PartScatter {
     const int32_t* pos;

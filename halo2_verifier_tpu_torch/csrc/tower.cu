@@ -8,8 +8,6 @@
 // - T1 fq_addsub: elementwise Fq add, subtract or negate (pairing_jax
 //   `_fadd`/`_fsub`/`_fneg`, `lmfield.add`/`sub`/`neg`); plain versions
 //   ops/field.py add_body, sub_body, neg_body;
-// - T2 fq_linmap: the exact linear map of pairing_jax `_linear_combine`
-//   + `_reduce_mod_p`; plain version ops/pairing.py linear_combine_plain;
 // - fq12_mul: the whole Fq12 multiply of pairing_jax `fq12_mul` (its two
 //   operand maps MA and MB, the 54 Montgomery products, the recombination
 //   map MC) in one launch; plain version ops/pairing.py fq12_mul_plain;
@@ -24,8 +22,8 @@
 // plain version bit for bit whatever its internal representation.
 //
 // What bounds them (chip_smoke.py's model, which counts the function):
-// T1 and T2 move 64 B per operand and result for a few dozen operations,
-// so both are bound by bytes at any width that fills the card; fq12_mul
+// T1 moves 64 B per operand and result for a few operations, so it is
+// bound by bytes at any width that fills the card; fq12_mul
 // does 54 products per lane on 36 elements moved, bound by its
 // multiply-adds; T3 by the multiply-adds of the shortest fixed-window
 // chain for N - 2, and the Miller step by those of that chain and its ~19
@@ -38,10 +36,6 @@
 // - T1: one thread per lane on field.cuh's canonical add and sub; each
 //   operand at its own row stride, so the column slices the tower hands
 //   it (views into a wider product) need no copy.
-// - T2: one thread per (output, lane), lanes fastest, so a warp shares an
-//   output and its coefficients: a multiply-accumulate of the operand's
-//   words into 64-bit columns per nonzero coefficient and one reduction
-//   per output (linmap.cuh).
 // - fq12_mul: a block of Fq12Shape::kLanes lanes x 64 threads. The 24
 //   coefficients of each lane are loaded into shared memory, lanes
 //   fastest (coalesced at any width from 8 lanes a block); thread p of a
@@ -53,8 +47,8 @@
 //   shuffles and reduced once. The maps' nonzeros are constant tables
 //   below, copied into shared memory (divergent reads of constant memory
 //   serialize). Nothing but the operands and the result touches device
-//   memory: one launch where the composition took four (T2 for MA, T2
-//   for MB, a 54-lane K1, T2 for MC) and two stacks.
+//   memory: one launch where the composition took four (a linear map for
+//   MA, one for MB, a 54-lane K1, one for MC) and two stacks.
 // - T3: one thread per lane on the radix-2^29 chain of mont29.cuh (64-bit
 //   column sums, lazy reduction, a dedicated squaring), by a fixed window
 //   of InvShape::kWindow bits over N - 2 (3 bits: 253 squarings and 71
@@ -184,7 +178,7 @@ static __constant__ __align__(4) int8_t FQ12_MC_COEF[324] = {
 
 namespace {
 
-constexpr int kThreads = 256;  // T1 and T2's blocks
+constexpr int kThreads = 256;  // T1's blocks
 constexpr int kInvBits = 254;  // bit length of N - 2, both moduli
 constexpr int kCoefs = 12;     // an Fq12 element's Fq coefficients
 constexpr int kProducts = 54;  // the Fq12 multiply's Fq products
@@ -246,27 +240,6 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[8],
     const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
     w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
     w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
-}
-
-// x: (16, k, width), m: (n_out, k) int32 with sum_j |m[o, j]| <= 256,
-// out: (16, n_out, width).
-__global__ void __launch_bounds__(kThreads)
-fq_linmap_kernel(const int32_t* __restrict__ x,
-                 const int32_t* __restrict__ m, int32_t* __restrict__ out,
-                 uint32_t k, uint32_t n_out, uint32_t width) {
-    uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_out * width) return;
-    uint32_t o = t / width, i = t - o * width;
-    int64_t d[8] = {};
-#pragma unroll 1
-    for (uint32_t j = 0; j < k; ++j) {
-        const int32_t c = m[o * k + j];
-        if (c == 0) continue;
-        const Fe v = Limbs16::load(x + j * width + i, k * width);
-        h2v::lin_mac(d, c, v.w);
-    }
-    Limbs16::store(out + o * width + i, n_out * width,
-                   h2v::lin_reduce<0>(d));
 }
 
 // Copy a constant table of N bytes (a multiple of 4) into shared memory,
@@ -578,15 +551,6 @@ extern "C" int h2v_fq_addsub(const int32_t* a, long long a_stride,
                        (cudaStream_t)stream>>>(
         a, (uint32_t)a_stride, b, (uint32_t)b_stride, out, (uint32_t)width,
         op);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int h2v_fq_linmap(const int32_t* x, const int32_t* m,
-                             int32_t* out, long long k, long long n_out,
-                             long long width, void* stream) {
-    fq_linmap_kernel<<<blocks_for(n_out * width, kThreads), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        x, m, out, (uint32_t)k, (uint32_t)n_out, (uint32_t)width);
     return (int)cudaGetLastError();
 }
 

@@ -71,7 +71,7 @@ _libs: dict = {}
 # narrow shape, a part of point_add's count and not a kernel of its own
 LAUNCHES = {"mont_mul": 0, "sqrt_principal": 0, "forest_frontier0": 0,
             "point_add": 0, "point_double": 0, "mont_mul8": 0,
-            "point_add8": 0, "fq_addsub": 0, "fq_linmap": 0, "fq12_mul": 0,
+            "point_add8": 0, "fq_addsub": 0, "fq12_mul": 0,
             "fq_inv": 0, "miller_step": 0, "point_add_narrow": 0}
 LANES = dict.fromkeys(LAUNCHES, 0)
 # the counters that count a part of another kernel's launches
@@ -316,7 +316,6 @@ SIGNATURES = {
     "point_add8.cu": {"h2v_point_add8": _POINT_ADD_ARGS},
     "tower.cu": {
         "h2v_fq_addsub": [_VP, _LL, _VP, _LL, _VP, _LL, _CI, _VP],
-        "h2v_fq_linmap": [_VP, _VP, _VP, _LL, _LL, _LL, _VP],
         "h2v_fq12_mul": [_VP, _VP, _VP, _LL, _VP],
         "h2v_fq_inv": [_VP, _VP, _LL, _CI, _VP],
         "h2v_miller_step": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _LL,
@@ -695,39 +694,6 @@ def fq_addsub(a, b, op: int):
             out.data_ptr(), width, op, _stream(a.device))
     _raise_on(rc, "fq_addsub")
     _count("fq_addsub", width, (a, b, op))
-    return out
-
-
-def fq_linmap(x, m):
-    """T2: the exact linear map out[:, o] = sum_j m[o, j] x[:, j] mod q
-    on (16, k, B) int32 canonical Montgomery limbs x and an (n_out, k)
-    int32 matrix m of small coefficients, both contiguous on the card;
-    canonical (16, n_out, B) out. The kernel's column sums are exact for
-    rows of m whose |coefficients| sum to at most 256 (the caller's
-    contract: ops/pairing.py checks every map before it uploads it)."""
-    dev = x.device
-    if not x.is_cuda or not m.is_cuda or m.device != dev:
-        raise ValueError("fq_linmap: expects CUDA tensors on one device")
-    if (x.dtype != torch.int32 or x.dim() != 3 or x.shape[0] != NLIMBS
-            or not x.is_contiguous()):
-        raise ValueError("fq_linmap: x must be contiguous (16, k, B) int32")
-    k, width = x.shape[1], x.shape[2]
-    if (m.dtype != torch.int32 or m.dim() != 2 or m.shape[1] != k
-            or not m.is_contiguous()):
-        raise ValueError(f"fq_linmap: m must be a contiguous (n_out, {k}) "
-                         "int32 matrix")
-    n_out = m.shape[0]
-    if x.numel() >= MAX_ELEMENTS or NLIMBS * n_out * width >= MAX_ELEMENTS:
-        raise ValueError("fq_linmap: a tensor of 2^31 or more elements")
-    out = torch.empty((NLIMBS, n_out, width), dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = _lib("tower.cu")
-    with torch.cuda.device(dev):
-        rc = lib.h2v_fq_linmap(x.data_ptr(), m.data_ptr(), out.data_ptr(),
-                               k, n_out, width, _stream(dev))
-    _raise_on(rc, "fq_linmap")
-    _count("fq_linmap", n_out * width, (x, m))
     return out
 
 

@@ -17,28 +17,22 @@ buckets and the 2^b weights fold in a WINDOW_BITS-step Horner.
 
 Host half (planning): copied from the reference unchanged, so plans equal
 the reference's array for array, with its plan-width pins
-(pin_plan_widths). Device half: two dispatches, the reference's two.
-dispatch_planned ("flat", the reference's CPU dispatch) uploads each
-operand on its own and launches the chain from Python: the level-0
-frontier is ONE launch that converts the affine points and gathers them
-by point_idx0 (csrc/frontier.cu); each forest level, tree fold and Horner
-step is ONE launch of the point-add kernel with the gather fused in (the
-kernel reads f[:, iL[i]] and f[:, iR[i]] itself).
-dispatch_planned_fuse3 ("packed", the reference's accelerator dispatch)
-writes every operand of a pinned plan into one int32 buffer at the
-reference's offsets, uploads it with one copy and runs the chain on views
-of it (packed_chain); on the card the chain is recorded once per pinned
-signature as a CUDA graph and then only replayed (ForestRecordings), the
-counterpart of the reference's compiled stage programs. The recorded
-chain holds only the package's kernels and one copy, no PyTorch kernel:
-the grid's copy of a cached identity grid, the frontier launch, one
-point-add launch per level that also writes the level's finished part
-into the bucket grid (scatter lanes past its add lanes), one launch of
-the deepest part's scatter lanes, 7 folds and 14 Horner steps that read
-their operands by cached indices; a k=14 batch's recording is 32 kernel
-nodes and one copy. The flat chain, the mesh and the scan bucket phase
-keep the gathers, the grid's scatter and the leaf gather
-(forest_buckets, _bucket_grid, plane_reduce).
+(pin_plan_widths). Device half: one chain, the reference's accelerator
+dispatch. dispatch_planned writes every operand of a plan into one int32
+buffer at the reference's offsets, uploads it with one copy and runs the
+chain on views of it (packed_chain); on the card the chain is recorded
+once per pinned signature as a CUDA graph and then only replayed
+(ForestRecordings), the counterpart of the reference's compiled stage
+programs. The chain is forest_grid, then plane_reduce: the grid's copy of
+a cached identity grid, the level-0 frontier launch (csrc/frontier.cu:
+convert the affine points and gather them by point_idx0), one point-add
+launch per level that also writes the level's finished part into the
+bucket grid (scatter lanes past its add lanes), one launch of the deepest
+part's scatter lanes, 7 folds and 14 Horner steps that read their
+operands by cached indices; a k=14 batch's recording is 32 kernel nodes
+and one copy, no PyTorch kernel. The mesh (parallel/mesh.py) calls
+forest_grid and plane_reduce itself, with its own collectives between
+them.
 
 Output: one stacked (3, NLIMBS, groups*NUM_WINDOWS) Montgomery projective
 window-totals tensor, combined on the host by
@@ -48,7 +42,6 @@ ops/msm.combine_window_totals_grouped.
 from __future__ import annotations
 
 import threading
-import time
 from collections import OrderedDict
 from typing import NamedTuple
 
@@ -458,9 +451,10 @@ def _bucket_leaf_idx(tw: int):
     return idx
 
 
-def _pad_transpose_points(x_np, y_np, n_pad):
-    """Shared dispatch preamble: (total, NLIMBS) canonical affine limbs ->
-    limbs-major (NLIMBS, n_pad) arrays, identity (0,0) in the pad lanes."""
+def pad_transpose_points(x_np, y_np, n_pad):
+    """(total, NLIMBS) canonical affine limbs -> limbs-major (NLIMBS,
+    n_pad) uint32 arrays, identity (0, 0) in the pad lanes: the point
+    table of a plan whose n_pad is n_pad."""
     total = x_np.shape[0]
     xs = np.zeros((NLIMBS, n_pad), dtype=np.uint32)
     ys = np.zeros((NLIMBS, n_pad), dtype=np.uint32)
@@ -469,18 +463,14 @@ def _pad_transpose_points(x_np, y_np, n_pad):
     return xs, ys
 
 
-def _plan_scatter_idx(plan):
-    """Shared dispatch preamble: concatenated finalized-bucket keys."""
-    return np.concatenate([keys for _lvl, _pos, keys in plan["finished"]])
-
-
-
 # ------------------------------------------------------------ device half
 
-def _check_plan(plan):
-    """Every gather index must lie inside the frontier it reads: the
-    point-add kernel reads by index without a bounds check, so the plan is
-    validated here on the host, before any index reaches the card."""
+def check_plan(plan):
+    """Every gather index must lie inside the frontier it reads, and every
+    scatter key must name a slot of the (tw * NUM_BUCKETS + 1)-slot grid:
+    the point-add kernel reads by index and its scatter lanes write by key
+    without a bounds check, so the plan is validated here on the host,
+    before any index reaches the card."""
     widths = [plan["n_pad"], plan["point_idx0"].shape[0]]
     widths += [iL.shape[0] for iL, _iR in plan["levels"]]
     arrays = [(plan["point_idx0"], widths[0])]
@@ -491,19 +481,14 @@ def _check_plan(plan):
     for a, w in arrays:
         if a.size and (int(a.min()) < 0 or int(a.max()) >= w):
             raise ValueError("forest plan index out of range")
-
-
-def _check_keys(plan):
-    """Every scatter key must name a slot of the (tw * NUM_BUCKETS +
-    1)-slot grid: the packed chain's scatter lanes write by key without a
-    bounds check."""
     dump = plan["tw"] * NUM_BUCKETS
     for _lvl, _pos, keys in plan["finished"]:
         if keys.size and (int(keys.min()) < 0 or int(keys.max()) > dump):
             raise ValueError("forest plan scatter key out of range")
 
 
-def _upload(a, device, dtype=I32):
+def upload(a, device, dtype=I32):
+    """A numpy array as a `dtype` tensor on `device`."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(dtype)
 
 
@@ -536,151 +521,6 @@ def frontier0(xs, ys, idx0):
     if xs.is_cuda:
         return kernels.forest_frontier0(xs, ys, idx0)
     return frontier0_plain(xs, ys, idx0)
-
-
-def _fold_pairs(f):
-    """One balanced tree level: add even/odd neighbour columns (one
-    point-add launch with iL = 2i, iR = 2i + 1)."""
-    w = f[0].shape[1]
-    idx = torch.arange(w, dtype=I32, device=f[0].device)
-    return curve.masked_add(f, f, iL=idx[0::2].contiguous(),
-                            iR=idx[1::2].contiguous())
-
-
-def _horner_bits(planes, tw):
-    """(NLIMBS, tw*WINDOW_BITS) plane sums, (w, b)-major -> window totals
-    sum_b 2^b S_b by Horner (double = complete self-add), stacked
-    (3, NLIMBS, tw): 2 x (WINDOW_BITS - 1) point-add launches, each plane
-    read by index."""
-    dev = planes[0].device
-    base = torch.arange(tw, dtype=I32, device=dev) * WINDOW_BITS
-    t = _gather(planes, (base + (WINDOW_BITS - 1)).to(I64))
-    for b in range(WINDOW_BITS - 2, -1, -1):
-        t = curve.add(t, t)
-        t = curve.masked_add(t, planes, iR=(base + b).contiguous())
-    return torch.stack(t)
-
-
-def _bucket_grid(f, scatter_idx, tw):
-    """Scatter the finalized bucket entries into the (NLIMBS, tw *
-    NUM_BUCKETS) grid, empty buckets patched to the projective identity.
-
-    Duplicate scatter indices occur only at the dump slot (the last one,
-    where identity padding lands) and that slot is dropped, so which
-    duplicate a non-deterministic index_put_ keeps does not matter."""
-    nslots = tw * NUM_BUCKETS + 1
-    grid = []
-    for c in f:
-        g = torch.zeros((NLIMBS, nslots), dtype=c.dtype, device=c.device)
-        g[:, scatter_idx] = c
-        grid.append(g[:, :-1])
-    empty = fm.is_zero(grid[1]) & fm.is_zero(grid[2])
-    one = FQ.col("r", grid[1].device).to(grid[1].dtype)
-    grid[1] = torch.where(empty.unsqueeze(0), one, grid[1])
-    return grid
-
-
-def _bucket_phase_scan(f, scatter_idx, tw):
-    """Summation-by-parts bucket phase: two suffix scans over the bucket
-    axis (2 x 8 point-add launches of tw * 255 lanes)."""
-    from .msm_scan import _suffix_scan_buckets
-
-    grid = _bucket_grid(f, scatter_idx, tw)
-    tail = tuple(c.reshape(NLIMBS, tw, NUM_BUCKETS)[:, :, 1:] for c in grid)
-    totals = _suffix_scan_buckets(_suffix_scan_buckets(tail))
-    return torch.stack([c[:, :, 0] for c in totals])  # (3, NLIMBS, tw)
-
-
-def _bucket_phase(f, scatter_idx, tw, scan: bool = False):
-    """Window totals sum_k k*B_k via the bit decomposition: a balanced
-    7-level tree per bit plane, then the Horner fold. scan=True selects
-    the summation-by-parts suffix-scan pair instead (the reference's
-    H2V_BUCKET=scan)."""
-    if scan:
-        return _bucket_phase_scan(f, scatter_idx, tw)
-    return plane_reduce(_bucket_grid(f, scatter_idx, tw), tw)
-
-
-_LEAF_IDX_DEV = {}
-
-
-def _leaf_idx_on(tw: int, device):
-    """_bucket_leaf_idx(tw) as an int32 tensor on `device`, uploaded once
-    per (tw, device): a recorded chain reads it, so it must exist before
-    the recording starts."""
-    key = (tw, str(device))
-    idx = _LEAF_IDX_DEV.get(key)
-    if idx is None:
-        idx = torch.from_numpy(_bucket_leaf_idx(tw)).to(device)
-        _LEAF_IDX_DEV[key] = idx
-    return idx
-
-
-def plane_reduce(grid, tw):
-    """(X, Y, Z) bucket grid, (NLIMBS, tw * NUM_BUCKETS) each -> window
-    totals (3, NLIMBS, tw): gather the bit-plane leaves (NLIMBS,
-    tw * WINDOW_BITS * 128), a balanced tree per plane, the Horner fold."""
-    leaves = _gather(grid, _leaf_idx_on(tw, grid[0].device))
-    while leaves[0].shape[1] > tw * WINDOW_BITS:
-        leaves = _fold_pairs(leaves)
-    return _horner_bits(leaves, tw)
-
-
-def dispatch_planned(x_np, y_np, plan, device, timings=None):
-    """Device stage, the flat dispatch: upload each operand and launch the
-    planned forest from Python; returns the (3, NLIMBS, tw) int32
-    window-totals tensor on `device` without synchronizing.
-
-    x_np/y_np: (total, NLIMBS) uint32 CANONICAL affine limbs ((0,0) =
-    identity), as the orchestrator assembles them. timings: an optional
-    utils.metrics.StageTimings that gets the dispatch's parts
-    (dispatch_check, dispatch_pack, dispatch_h2d: every upload,
-    dispatch_launch: the rest of the chain)."""
-    with maybe_stage(timings, "dispatch_check"):
-        _check_plan(plan)
-    with maybe_stage(timings, "dispatch_pack"):
-        xs, ys = _pad_transpose_points(x_np, y_np, plan["n_pad"])
-    upload, h2d = _upload, [0.0]
-    if timings is not None:
-        def upload(a, dev, dtype=I32):
-            t = time.perf_counter()
-            try:
-                return _upload(a, dev, dtype)
-            finally:
-                h2d[0] += time.perf_counter() - t
-    t0 = time.perf_counter()
-    fin, scatter_idx = forest_buckets(upload(xs.view(np.int32), device),
-                                      upload(ys.view(np.int32), device),
-                                      plan, upload)
-    arr = _bucket_phase(fin, scatter_idx, plan["tw"])
-    if timings is not None:
-        timings.add("dispatch_h2d", h2d[0])
-        timings.add("dispatch_launch", time.perf_counter() - t0 - h2d[0])
-    return arr
-
-
-def forest_buckets(xs, ys, plan, upload=_upload):
-    """The level-0 frontier from the (NLIMBS, n_pad) int32 canonical
-    affine limbs on the device (plan checked by the caller), then the
-    forest levels; returns the finalized bucket entries (X, Y, Z) and
-    their int64 scatter keys into the (tw * NUM_BUCKETS + 1)-slot grid.
-    upload(array, device[, dtype]) puts each plan array on the device."""
-    device = xs.device
-    frontiers = [frontier0(xs, ys, upload(plan["point_idx0"], device))]
-    for iL, iR in plan["levels"]:
-        f = frontiers[-1]
-        frontiers.append(curve.masked_add(
-            f, f, iL=upload(iL, device), iR=upload(iR, device)))
-    # finalized buckets gather from the frontier level where they reduced
-    # to one entry; identity-padded lanes scatter into the dump slot
-    gathered = [
-        _gather(frontiers[lvl], upload(pos, device, I64))
-        for lvl, pos, _keys in plan["finished"]
-    ]
-    fin = tuple(
-        torch.cat([g[c] for g in gathered], dim=1) for c in range(3)
-    )
-    return fin, upload(_plan_scatter_idx(plan), device, I64)
 
 
 # ------------------------------------------------ packed, recorded dispatch
@@ -789,9 +629,9 @@ def _horner_idx(tw: int):
 
 def scatter_part_plain(f, pos, keys, grid):
     """Plain version of a launch's scatter lanes: grid[:, keys[j]] =
-    f[:, pos[j]] with Y := R where Y = Z = 0 (_bucket_grid's patch), in
-    place; the gather and scatter of forest_buckets and _bucket_grid, one
-    part at a time."""
+    f[:, pos[j]] with Y := R where Y = Z = 0 (so an entry that reads as
+    (0 : 0 : 0) lands as the identity (0 : R : 0)), in place. Duplicate
+    keys occur only at the dump slot, which no reduction reads."""
     part = _gather(f, pos.to(I64))
     empty = fm.is_zero(part[1]) & fm.is_zero(part[2])
     one = FQ.col("r", part[1].device).to(part[1].dtype)
@@ -827,11 +667,12 @@ def _stacked(t):
     return torch.stack(t)
 
 
-def _horner_indexed(planes, tw):
-    """_horner_bits with the planes read by cached indices: the first
-    step doubles each window's top plane by index (no gathered start),
-    every step adds plane b by index; 2 x (WINDOW_BITS - 1) point-add
-    launches, bit-equal to _horner_bits'."""
+def _horner(planes, tw):
+    """(X, Y, Z) plane sums, (NLIMBS, tw * WINDOW_BITS) each, (w, b)-major
+    -> the window totals sum_b 2^b S_b, (3, NLIMBS, tw), by Horner with a
+    complete self-add as the doubling: the first step doubles each
+    window's top plane, read by index, and every step adds plane b by
+    index; 2 x (WINDOW_BITS - 1) point-add launches."""
     idx = _static_on("horner", tw, planes[0].device, _horner_idx)
     top = idx[WINDOW_BITS - 1]
     t = curve.masked_add(planes, planes, iL=top, iR=top)
@@ -842,53 +683,72 @@ def _horner_indexed(planes, tw):
     return _stacked(t)
 
 
-def _plane_reduce_indexed(grid, tw):
-    """plane_reduce on the (X, Y, Z) rows of the (tw * NUM_BUCKETS +
-    1)-slot grid with every index static: the first fold adds the grid's
-    leaf pairs (the leaf gather and the fold in one launch), the 6 later
-    folds lanes 2i and 2i + 1, then _horner_indexed; bit-equal to
-    plane_reduce's."""
+def plane_reduce(grid, tw):
+    """The bucket grid -> the window totals sum_k k*B_k, (3, NLIMBS, tw),
+    by the bit decomposition: for each window and digit bit b, a balanced
+    tree over the 128 buckets whose digit has bit b set, then the Horner
+    fold over the bits. grid: (X, Y, Z) rows or a (3, NLIMBS, n) tensor;
+    only its first tw * NUM_BUCKETS slots are read, so a grid with or
+    without the dump slot will do. Every index is static and cached on
+    the device: the first fold adds the grid's leaf pairs (the leaf
+    gather and the fold in one launch), the 6 later folds lanes 2i and
+    2i + 1, then _horner; 7 + 14 point-add launches."""
+    grid = tuple(grid)
     dev = grid[0].device
     iL, iR = _static_on("leaf_pairs", tw, dev, _leaf_pairs)
     t = curve.masked_add(grid, grid, iL=iL, iR=iR)
     while t[0].shape[1] > tw * WINDOW_BITS:
         iL, iR = _static_on("pairs", t[0].shape[1], dev, _pair_idx)
         t = curve.masked_add(t, t, iL=iL, iR=iR)
-    return _horner_indexed(t, tw)
+    return _horner(t, tw)
+
+
+def forest_grid(xs, ys, idx0, levels, parts, tw):
+    """The forest of a plan, on any device: returns its (3, NLIMBS,
+    tw * NUM_BUCKETS + 1) int32 bucket grid, every bucket's sum in
+    Montgomery projective form, empty buckets the identity, the dump slot
+    last. xs, ys: the (NLIMBS, n_pad) canonical affine limbs; idx0: the
+    (w0,) point_idx0; levels: (iL, iR) per level; parts: (pos, keys) per
+    finished part, one for each level 0..L in order; all int32 tensors on
+    the device.
+
+    The grid is a copy of a cached identity grid; then the level-0
+    frontier (frontier0), one launch per level that adds the level and
+    writes the finished part read from its input frontier into the grid
+    (level_scatter), and one launch for the deepest part: L + 2 launches
+    and one copy on the card."""
+    grid = _static_on("identity_grid", tw, xs.device, _identity_grid).clone()
+    rows = tuple(grid)
+    f = frontier0(xs, ys, idx0)
+    for (iL, iR), (pos, keys) in zip(tuple(levels) + ((None, None),), parts):
+        f = level_scatter(f, iL, iR, pos, keys, rows)
+    return grid
 
 
 def packed_chain(buf, layout):
-    """The forest and its bucket phase on views of the packed (total,)
-    int32 buffer, on any device: the grid, a copy of the identity grid;
-    the level-0 frontier; per level one launch that adds the level and
-    writes the finished part read from its input frontier into the grid
-    (level_scatter); the deepest part's launch; then
-    _plane_reduce_indexed. Returns the (3, NLIMBS, tw) window totals,
-    bit-equal to dispatch_planned's on the same plan.
+    """The forest and its bucket reduction on views of the packed (total,)
+    int32 buffer, on any device: forest_grid, then plane_reduce. Returns
+    the (3, NLIMBS, tw) window totals.
 
     On the card that is L + 23 kernel launches for L levels (32 on the
     k=14 main path) and one copy, with no PyTorch kernel between them
-    (ForestRecordings counts a recording's nodes):
-    every index is a slice of the buffer or cached on the device, so the
-    point-add kernel reads its operands by index and no gathered copy is
-    made (the reference's choice between one and two XLA gathers per
-    level, concat_gather or H2V_LEVEL_GATHER, has nothing to decide
-    here); the scatter keys stay int32."""
-    o = NLIMBS * layout.n_pad
-    grid = tuple(_static_on("identity_grid", layout.tw, buf.device,
-                            _identity_grid).clone())
-    f = frontier0(buf[:o].view(NLIMBS, layout.n_pad),
-                  buf[o:2 * o].view(NLIMBS, layout.n_pad),
-                  buf[2 * o:2 * o + layout.w0])
-    oS = layout.scatter[0]
-    levels = layout.levels + ((None, None, 0),)
-    for (oL, oR, w), (oP, wp) in zip(levels, layout.parts):
-        iL = iR = None
-        if oL is not None:
-            iL, iR = buf[oL:oL + w], buf[oR:oR + w]
-        f = level_scatter(f, iL, iR, buf[oP:oP + wp], buf[oS:oS + wp], grid)
+    (ForestRecordings counts a recording's nodes): every index is a slice
+    of the buffer or cached on the device, so the point-add kernel reads
+    its operands by index and no gathered copy is made (the reference's
+    choice between one and two XLA gathers per level, concat_gather or
+    H2V_LEVEL_GATHER, has nothing to decide here); the scatter keys stay
+    int32."""
+    o, n_pad = NLIMBS * layout.n_pad, layout.n_pad
+    levels = [(buf[oL:oL + w], buf[oR:oR + w]) for oL, oR, w in layout.levels]
+    parts, oS = [], layout.scatter[0]
+    for oP, wp in layout.parts:
+        parts.append((buf[oP:oP + wp], buf[oS:oS + wp]))
         oS += wp
-    return _plane_reduce_indexed(grid, layout.tw)
+    grid = forest_grid(buf[:o].view(NLIMBS, n_pad),
+                       buf[o:2 * o].view(NLIMBS, n_pad),
+                       buf[2 * o:2 * o + layout.w0], levels, parts,
+                       layout.tw)
+    return plane_reduce(grid, layout.tw)
 
 
 def _pool_bytes(graph) -> int:
@@ -946,9 +806,8 @@ class ForestRecordings:
     records anew, the reference's recompile on a re-pin. At most
     `max_slots` recordings live at once: a new slot beyond that frees the
     least recently dispatched one. A capture that fails raises: there is
-    no fallback to the flat chain. Dispatches are serialized (the
-    stream's finish workers dispatch bisection batches beside the main
-    thread).
+    no fallback. Dispatches are serialized (the stream's finish workers
+    dispatch bisection batches beside the main thread).
 
     Counters: recorded (recordings made), replaced (recordings a new
     layout freed), evicted (recordings freed for a new slot), replays;
@@ -1016,12 +875,12 @@ class ForestRecordings:
             if copy is None:
                 copy = self._copy_streams[device] = torch.cuda.Stream(device)
             copy.wait_event(rec.replayed)
-            upload = kernels.HostCopy(rec.buf, rec.staging[s], copy,
-                                      rec.copied[s])
-            queued = before_upload is not None and before_upload(upload)
+            h2d = kernels.HostCopy(rec.buf, rec.staging[s], copy,
+                                   rec.copied[s])
+            queued = before_upload is not None and before_upload(h2d)
             with maybe_stage(timings, "dispatch_h2d"):
                 if not queued:
-                    kernels.host_copy(upload)
+                    kernels.host_copy(h2d)
                 torch.cuda.current_stream(device).wait_event(rec.copied[s])
             if rec.graph is None:
                 with maybe_stage(timings, "dispatch_record"):
@@ -1072,37 +931,39 @@ class ForestRecordings:
 
 
 def _is_canonical(plan) -> bool:
-    """The shape host_plan always gives (_canonicalize_plan): a level
-    count that is a multiple of 3, one finished part per level 0..L in
-    order."""
+    """The shape the chain reads, which host_plan always gives
+    (_canonicalize_plan): one finished part per level 0..L, in order."""
     levels, parts = plan["levels"], plan["finished"]
-    return (len(levels) % 3 == 0 and len(parts) == len(levels) + 1
+    return (len(parts) == len(levels) + 1
             and all(parts[i][0] == i for i in range(len(parts))))
 
 
-def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
-                           slot=None, timings=None, before_upload=None):
-    """Device stage, the packed dispatch (the reference's
-    dispatch_planned_fuse3 with its packed upload): every operand of the
-    plan in one int32 buffer, one upload, the chain on views of it.
-    Returns the (3, NLIMBS, tw) int32 window totals without synchronizing,
-    bit-equal to dispatch_planned's.
+def dispatch_planned(x_np, y_np, plan, device, recordings=None, slot=None,
+                     timings=None, before_upload=None):
+    """Device stage (the reference's accelerator dispatch with its packed
+    upload, _dispatch_fuse3_packed): every operand of the plan in one
+    int32 buffer, one upload, packed_chain on views of it.
+    Returns the (3, NLIMBS, tw) int32 window totals without
+    synchronizing.
 
-    On the card the chain runs through `recordings`, the caller's
-    ForestRecordings, under `slot` (default the layout): recorded once per
-    signature, then replayed; the result is a copy of the recording's
-    static output, the caller's to keep. On the CPU the same chain runs
-    eagerly on the plain versions. A non-canonical (hand-built) plan goes
-    to dispatch_planned, the reference's rule. timings: as
-    dispatch_planned's, with dispatch_launch the replay and its output's
-    copy, and dispatch_record a slot's first batch and its recording.
+    x_np/y_np: (total, NLIMBS) uint32 CANONICAL affine limbs ((0,0) =
+    identity), as the orchestrator assembles them. A plan without a
+    finished part at every level (only a hand-built one) is canonicalized
+    on a copy first. On the card the chain runs through `recordings`, the
+    caller's ForestRecordings, under `slot` (default the layout): recorded
+    once per signature, then replayed; the result is a copy of the
+    recording's static output, the caller's to keep. On any other device
+    the same chain runs eagerly on the plain versions. timings: an
+    optional utils.metrics.StageTimings that gets the dispatch's parts
+    (dispatch_check, dispatch_pack, dispatch_h2d: the upload on the card,
+    dispatch_launch: the chain, on the card the replay and its output's
+    copy, dispatch_record: a slot's first batch and its recording).
     before_upload: called once the operands are packed, before their
-    upload: ForestRecordings.dispatch's, on the CPU with None."""
+    upload: ForestRecordings.dispatch's, elsewhere with None."""
     if not _is_canonical(plan):
-        return dispatch_planned(x_np, y_np, plan, device, timings)
+        plan = _canonicalize_plan(dict(plan))
     with maybe_stage(timings, "dispatch_check"):
-        _check_plan(plan)
-        _check_keys(plan)
+        check_plan(plan)
     layout = packed_layout(plan)
     device = torch.device(device)
     if device.type != "cuda":
@@ -1114,7 +975,7 @@ def dispatch_planned_fuse3(x_np, y_np, plan, device, recordings=None,
         with maybe_stage(timings, "dispatch_launch"):
             return packed_chain(torch.from_numpy(buf).to(device), layout)
     if recordings is None:
-        raise ValueError("dispatch_planned_fuse3 on CUDA records into the "
+        raise ValueError("dispatch_planned on CUDA records into the "
                          "caller's ForestRecordings: pass recordings=")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -1128,5 +989,7 @@ def msm_grouped(scalars_np, x_np, y_np, sizes, device):
     from .msm import combine_window_totals_grouped
 
     plan = host_plan(scalars_np, sizes)
-    arr = dispatch_planned(x_np, y_np, plan, device)
+    recordings = (ForestRecordings(max_slots=1)
+                  if torch.device(device).type == "cuda" else None)
+    arr = dispatch_planned(x_np, y_np, plan, device, recordings)
     return combine_window_totals_grouped(arr.cpu().numpy(), len(sizes))

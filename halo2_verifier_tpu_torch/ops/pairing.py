@@ -16,9 +16,6 @@ hundreds of small launches each have a kernel of their own
 (csrc/tower.cu, through ops/kernels.py), used for CUDA tensors:
 - T1 `fq_addsub`: the Fq add, subtract and negate of `_fadd`, `_fsub`,
   `_fneg` (plain versions: `field.add_body`, `sub_body`, `neg_body`);
-- T2 `fq_linmap`: the exact linear map `_linear_combine` (plain version:
-  `linear_combine_plain`, the reference's two integer sums and its
-  `_reduce_mod_p`, in int64 so that it is exact on any device);
 - `fq12_mul`: the whole Fq12 multiply, its two operand maps, 54 products
   and recombination map in one launch, on (NLIMBS, 12, B) coefficient
   stacks (`fq12_mul_stack`; plain version: `fq12_mul_plain`, the
@@ -199,10 +196,10 @@ def fq2_one(b, device):
 # The tower's multiply formulas are (operand prep) -> (independent Fq
 # products) -> (recombination), where prep and recombination are LINEAR
 # maps with small integer coefficients. On the card the Fq12 multiply
-# runs its three maps inside its one fused launch, and `_linear_combine`
-# is one T2 launch; the plain version of a map is the reference's: two
-# integer sums over the stacked 16-bit limbs (far below 2^32) and one
-# batched exact mod-P reduction.
+# runs its three maps inside its one fused launch; elsewhere each map is
+# linear_combine_plain, the reference's linear combine
+# (pairing_jax.py:245): two integer sums over the stacked 16-bit limbs
+# (far below 2^32) and one batched exact mod-P reduction.
 
 
 _GEOM16 = ((1 << 256) - 1) // ((1 << 16) - 1)  # sum(2^(16 i), i<16)
@@ -282,7 +279,7 @@ def _map_bound(M):
 
 
 def linear_combine_plain(X, M):
-    """The plain version of T2, exact on any device: X (NLIMBS, k, B)
+    """The exact mod-P linear map, on any device: X (NLIMBS, k, B)
     canonical residues (int32), M (n_out, k) small ints (any sign) ->
     (NLIMBS, n_out, B) canonical int32. The reference's positive and
     negative integer sums (as int64 broadcast products summed over k: no
@@ -305,31 +302,6 @@ def linear_combine_plain(X, M):
     else:
         acc = torch.cat([Sp, zrow])
     return _reduce_mod_p(acc).to(I32)
-
-
-_MAP_TENSORS: dict = {}
-
-
-def _map_tensor(M, device):
-    """M as a contiguous int32 tensor on `device`, uploaded once per map
-    and device."""
-    key = (M.shape, M.tobytes(), str(device))
-    t = _MAP_TENSORS.get(key)
-    if t is None:
-        _map_bound(M)
-        t = torch.from_numpy(np.ascontiguousarray(M, dtype=np.int32)).to(
-            device)
-        _MAP_TENSORS[key] = t
-    return t
-
-
-def _linear_combine(X, M):
-    """Exact mod-P linear map: X (NLIMBS, k, B) canonical residues,
-    M (n_out, k) small ints (any sign) -> (NLIMBS, n_out, B) canonical.
-    One T2 launch for a CUDA tensor, the plain version for a CPU one."""
-    if X.is_cuda:
-        return kernels.fq_linmap(X, _map_tensor(M, X.device))
-    return linear_combine_plain(X, M)
 
 
 def _mul_cols(A, B):

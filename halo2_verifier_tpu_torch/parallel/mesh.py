@@ -13,11 +13,14 @@ Sharded kinds, as the reference's orchestrator picks them:
   group across all points. The point table is uploaded 1/D per rank and
   all-gathered (upload="shard"), or uploaded whole (upload="replicate").
 - forest (sharded_forest_window_totals), when D divides the total window
-  count: rank d runs the forest over its slice of each group's points,
-  scatters its partial bucket grid, and one all_to_all over the window
-  axis hands rank d every rank's partials for its tw/D windows, which it
+  count: rank d runs the forest over its slice of each group's points
+  into its partial bucket grid, and one all_to_all over the window axis
+  hands rank d every rank's partials for its tw/D windows, which it
   tree-reduces in the reference's halving order (so the projective
   representatives are the reference's, bit for bit) and reduces.
+Both forest kinds run the single-device chain's two halves
+(msm_forest.forest_grid for the bucket grid, msm_forest.plane_reduce for
+the window totals), eagerly, the plan's index arrays uploaded one by one.
 - scan (sharded_window_totals_presorted), else: the host-sorted entries
   split evenly across ranks, the points replicate; a bucket segment cut
   at a rank boundary gives two partial sums that add exactly.
@@ -319,8 +322,8 @@ def sharded_forest_window_totals(mesh: Mesh, x_np, y_np, s_np, sizes,
         rows.append(np.arange(lo, hi))
     rows = np.concatenate(rows)
     plan = mf.host_plan(np.ascontiguousarray(s_np[rows]), sl_sizes)
-    mf._check_plan(plan)
-    xs, ys = mf._pad_transpose_points(x_np[rows], y_np[rows], plan["n_pad"])
+    mf.check_plan(plan)
+    xs, ys = mf.pad_transpose_points(x_np[rows], y_np[rows], plan["n_pad"])
     twd = tw // D
     lanes = twd * NUM_BUCKETS
     if stats is not None:
@@ -336,11 +339,11 @@ def sharded_forest_window_totals(mesh: Mesh, x_np, y_np, s_np, sizes,
                            + twd * BUCKET_ADDS_PER_WINDOW),
         )
     dev = mesh.device
-    fin, scatter = mf.forest_buckets(mf._upload(xs.view(np.int32), dev),
-                                     mf._upload(ys.view(np.int32), dev), plan)
-    grid = mf._bucket_grid(fin, scatter, tw)
-    # rank j receives columns [j*lanes, (j+1)*lanes) of every rank's grid
-    send = (torch.stack(grid).reshape(3, NLIMBS, D, lanes)
+    grid = _forest_grid(plan, mf.upload(xs.view(np.int32), dev),
+                        mf.upload(ys.view(np.int32), dev))
+    # rank j receives columns [j*lanes, (j+1)*lanes) of every rank's grid,
+    # the dump slot dropped
+    send = (grid[:, :, :tw * NUM_BUCKETS].reshape(3, NLIMBS, D, lanes)
             .permute(2, 0, 1, 3).contiguous())
     red = all_to_all(mesh, send).to(dev)  # [s]: rank s's partial grid
     # the reference's halving order: first half + second half, the odd
@@ -351,8 +354,21 @@ def sharded_forest_window_totals(mesh: Mesh, x_np, y_np, s_np, sizes,
         if red.shape[0] & 1:
             s = torch.cat([s, red[2 * half:]])
         red = s
-    totals = mf.plane_reduce(tuple(c.contiguous() for c in red[0]), twd)
+    totals = mf.plane_reduce(red[0].contiguous(), twd)
     return all_gather(mesh, totals)
+
+
+def _forest_grid(plan, xs, ys):
+    """The (3, NLIMBS, tw * NUM_BUCKETS + 1) bucket grid of a checked
+    plan on the device of the (NLIMBS, n_pad) int32 point limbs xs, ys:
+    msm_forest.forest_grid, the plan's index arrays uploaded as int32."""
+    dev = xs.device
+    levels = [(mf.upload(iL, dev), mf.upload(iR, dev))
+              for iL, iR in plan["levels"]]
+    parts = [(mf.upload(pos, dev), mf.upload(keys, dev))
+             for _lvl, pos, keys in plan["finished"]]
+    return mf.forest_grid(xs, ys, mf.upload(plan["point_idx0"], dev), levels,
+                          parts, plan["tw"])
 
 
 def _index_bytes(plan) -> int:
@@ -399,9 +415,9 @@ def sharded_forest_by_windows(mesh: Mesh, x_np, y_np, s_np, sizes,
                          "windows")
     wpc = NUM_WINDOWS // D
     plan = mf.host_plan(s_np, sizes, window_lo=d * wpc, window_count=wpc)
-    mf._check_plan(plan)
+    mf.check_plan(plan)
     n_pad = plan["n_pad"]  # the same points, the same padding everywhere
-    xs, ys = mf._pad_transpose_points(x_np, y_np, n_pad)
+    xs, ys = mf.pad_transpose_points(x_np, y_np, n_pad)
     table = np.stack([xs, ys]).view(np.int32)  # (2, NLIMBS, n_pad)
     shard = upload == "shard" and n_pad % D == 0
     if stats is not None:
@@ -421,14 +437,14 @@ def sharded_forest_by_windows(mesh: Mesh, x_np, y_np, s_np, sizes,
     dev = mesh.device
     if shard:
         cols = n_pad // D
-        part = mf._upload(table[:, :, d * cols:(d + 1) * cols], dev)
+        part = mf.upload(table[:, :, d * cols:(d + 1) * cols], dev)
         g = all_gather(mesh, part).to(dev)  # (D, 2, NLIMBS, cols)
         table_t = g.permute(1, 2, 0, 3).reshape(2, NLIMBS, n_pad)
     else:
-        table_t = mf._upload(table, dev)
-    fin, scatter = mf.forest_buckets(table_t[0].contiguous(),
-                                     table_t[1].contiguous(), plan)
-    return all_gather(mesh, mf._bucket_phase(fin, scatter, plan["tw"]))
+        table_t = mf.upload(table, dev)
+    grid = _forest_grid(plan, table_t[0].contiguous(),
+                        table_t[1].contiguous())
+    return all_gather(mesh, mf.plane_reduce(grid, plan["tw"]))
 
 
 def windows_in_order(arr, groups: int) -> np.ndarray:

@@ -13,16 +13,16 @@ Pipeline:
 3. DEVICE: both MSMs as one host-planned addition forest
    (ops/msm_forest.py) or, with msm="scan", one host-sorted segmented
    scan (ops/msm_scan.py), giving a (3, nlimbs, 64) window-totals tensor.
-   The forest's plan widths are pinned per workload; on CUDA its default
-   dispatch packs every operand into one upload and replays the chain
-   recorded for the pinned signature (forest_dispatch="packed").
+   The forest's plan widths are pinned per workload; its dispatch packs
+   every operand into one upload and, on CUDA, replays the chain recorded
+   for the pinned signature (msm_forest.dispatch_planned).
 4. HOST: exact combine of the window totals and one pairing per batch
    (the native host pairing, or with pairing="device" the tower of
    ops/pairing.py on the verifier's device); on failure, bisection over
    the replayed per-proof MSMs.
 
 All device work runs on the current stream of one device, but for the
-packed forest's upload, on a copy stream of its own. Results come
+forest's upload, on a copy stream of its own. Results come
 back through a non-blocking copy into pinned host memory and a recorded
 CUDA event: the finish workers wait on that event, never on the device,
 and only read their own buffer.
@@ -39,7 +39,7 @@ Spans: the stages `timings` (utils/metrics.StageTimings) gets from a
 stream. On the thread that consumes verify_stream: decomp_dispatch
 three times a batch (the pre-pass's gather and staging, one batch
 ahead; the upload and the roots' launch, inside the batch before's
-device_msm_dispatch on the packed forest; the D2H enqueue and hand-off
+device_msm_dispatch on the forest; the D2H enqueue and hand-off
 after that dispatch),
 decomp_wait (the block on its roots), host_replay (with replay_vm, the
 native VM call, inside it; the rest is the staging around it; inside
@@ -185,12 +185,10 @@ class BatchVerifier:
     where it applies (the reference's H2V_MESH_SHARD).
     mesh_upload: "shard" or "replicate", the windows kind's point-table
     upload (the reference's H2V_MESH_UPLOAD).
-    forest_dispatch: the forest MSM's dispatch on one device, the
-    reference's _forest_mode: "packed" (its accelerator dispatch: plan
-    widths pinned per workload, one packed upload per batch, on CUDA the
-    chain recorded once per pinned signature and replayed) or "flat" (its
-    CPU dispatch: an upload per operand, launches from Python); None =
-    "packed" on CUDA, "flat" otherwise. The mesh keeps its own dispatch."""
+    The forest MSM on one device is the reference's accelerator dispatch
+    (msm_forest.dispatch_planned): plan widths pinned per workload, one
+    packed upload per batch, on CUDA the chain recorded once per pinned
+    signature and replayed, elsewhere run eagerly."""
 
     # padded sizes quantize to this granularity
     PAD_GRAN = 256
@@ -199,7 +197,7 @@ class BatchVerifier:
                  device=None, rng=None, strategy="accumulator",
                  pairing="host", msm="forest", decomp=None, mesh=None,
                  limb_backend=msm_scan.DEFAULT_BACKEND, mesh_shard=None,
-                 mesh_upload="shard", forest_dispatch=None):
+                 mesh_upload="shard"):
         if strategy not in ("accumulator", "single"):
             raise ValueError(f"unknown strategy {strategy!r} "
                              "(expected 'accumulator' or 'single')")
@@ -218,9 +216,6 @@ class BatchVerifier:
         if limb_backend not in ("u16", "f8"):
             raise ValueError(f"unknown limb_backend {limb_backend!r} "
                              "(expected 'u16' or 'f8')")
-        if forest_dispatch not in (None, "packed", "flat"):
-            raise ValueError(f"unknown forest_dispatch {forest_dispatch!r} "
-                             "(expected None, 'packed' or 'flat')")
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -245,12 +240,9 @@ class BatchVerifier:
         self.mesh_shard = mesh_shard
         self.mesh_upload = mesh_upload
         self.mesh_wire_stats = {}
-        self.forest_dispatch = forest_dispatch or (
-            "packed" if self.device.type == "cuda" else "flat")
         # per-workload plan-width pins (msm_forest.pin_plan_widths), keyed
         # by repr(tuple(sizes)) as the reference keys them; re-pins counts
-        # a pin that grew. The packed dispatch's recordings are kept per
-        # pin key
+        # a pin that grew. The forest's recordings are kept per pin key
         self._plan_pins = {}
         self._pin_lock = threading.Lock()
         self.plan_repins = 0
@@ -415,7 +407,7 @@ class BatchVerifier:
         and plan_canonicalize, and the pin, plan_pin; the dispatch's own,
         see msm_forest.dispatch_planned; dispatch_prefetch); the stream
         passes its own, the bisection none. before_upload: called by the
-        packed forest dispatch between its pack and its upload (see
+        forest dispatch between its pack and its upload (see
         msm_forest.ForestRecordings.dispatch), by no other."""
         self.msm_entries_dispatched += s_np.shape[0]
         if self.msm == "host":
@@ -465,18 +457,14 @@ class BatchVerifier:
         # device point adds: forest levels (plan, with the pin's pad adds)
         # + per-window bit-plane bucket reduction (7-level tree over 128
         # buckets x 8 bit planes + 14-step Horner, see
-        # msm_forest._bucket_phase)
+        # msm_forest.plane_reduce)
         self.point_adds_dispatched += plan["adds"] + (
             len(sizes) * NUM_WINDOWS * (127 * 8 + 14)
         )
-        if self.forest_dispatch == "packed":
-            arr = msm_forest.dispatch_planned_fuse3(
-                x_np, y_np, plan, self.device,
-                recordings=self.forest_recordings, slot=key,
-                timings=timings, before_upload=before_upload)
-        else:
-            arr = msm_forest.dispatch_planned(x_np, y_np, plan, self.device,
-                                              timings)
+        arr = msm_forest.dispatch_planned(
+            x_np, y_np, plan, self.device,
+            recordings=self.forest_recordings, slot=key, timings=timings,
+            before_upload=before_upload)
         with maybe_stage(timings, "dispatch_prefetch"):
             return ("grouped", self._prefetch_d2h(arr))
 

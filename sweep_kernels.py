@@ -36,10 +36,7 @@ h2v_sqrt_principal), per block size, exponent window and lanes per thread
 fq12_mul: the device pairing's fused Fq12 multiply (csrc/tower.cu
 h2v_fq12_mul) per lanes per block and threads per output of its
 recombination map (tower.cu Fq12Shape), at the pairing's 1 and 2 lanes
-and at 16,384; beside it T2 (h2v_fq_linmap) on the recombination map MC
-at 2 and 16,384 lanes, in the shipped shape's build alone. A version without h2v_fq12_mul (a --parent from
-before it) runs the multiply as its four launches: T2 for MA, T2 for
-MB, the 54-lane K1 product, T2 for MC.
+and at 16,384.
 
 fq_inv: the Fermat inversion T3 (tower.cu h2v_fq_inv) per block size and
 exponent window (tower.cu InvShape), at the pairing's 2 lanes and at
@@ -283,20 +280,16 @@ def canonical(torch, np, rng, shape, dev):
 
 class Fq12Mul:
     """The fused Fq12 multiply per (lanes per block, threads per MC
-    output), the shipped shape first; and T2 on MC, which no shape field
-    changes, so it is timed in the first variant's build alone, beside
-    the parent's T2."""
+    output), the shipped shape first."""
 
     header = "tower.cu"
-    build_sources = ("tower.cu", "mont_mul.cu")
-    sources = {"fq12_mul": "tower.cu", "fq_linmap": "tower.cu"}
-    labels = {"fq12_mul": "fq12_mul_kernel", "fq_linmap": "fq_linmap_kernel"}
+    build_sources = ("tower.cu",)
+    sources = {"fq12_mul": "tower.cu"}
+    labels = {"fq12_mul": "fq12_mul_kernel"}
     variants = [(2, 4), (1, 1), (1, 4), (4, 4), (8, 2), (8, 4)]
-    shape_free = ("fq_linmap",)
     fields = {"kLanes": r"static constexpr int kLanes = \d+;",
               "kSplit": r"static constexpr int kSplit = \d+;"}
     matches = 1
-    composed = "fq_linmap_kernel x3 + mont_mul_kernel<0> (4 launches)"
 
     @staticmethod
     def name(v):
@@ -315,52 +308,19 @@ class Fq12Mul:
         width = max(TOWER_LANES)
         a = canonical(torch, np, rng, (16, 12, width), dev)
         b = canonical(torch, np, rng, (16, 12, width), dev)
-        mc = canonical(torch, np, rng, (16, 54, width), dev)
         for lanes in TOWER_LANES:
             x, y = (t[:, :, :lanes].contiguous() for t in (a, b))
             yield ("fq12_mul", str(lanes)), (x, y), (
                 lambda x=x, y=y: tp.fq12_mul_plain(x, y))
-        for lanes in TOWER_LANES[1:]:
-            x = mc[:, :, :lanes].contiguous()
-            yield ("fq_linmap", f"mc_{lanes}"), (x,), (
-                lambda x=x: tp.linear_combine_plain(x, tp._FQ12_MC))
 
     @staticmethod
     def launch(torch, entries, kname, args):
-        from halo2_verifier_tpu_torch.ops import pairing as tp
-
-        dev = args[0].device
-        stream = torch.cuda.current_stream().cuda_stream
-        maps = {n: tp._map_tensor(getattr(tp, n), dev)
-                for n in ("_FQ12_MA", "_FQ12_MB", "_FQ12_MC")}
-        linmap = entries["h2v_fq_linmap"]
-
-        def lin(x, m, out):
-            return linmap(x.data_ptr(), m.data_ptr(), out.data_ptr(),
-                          x.shape[1], m.shape[0], x.shape[2], stream)
-
-        if kname == "fq_linmap":
-            (x,) = args
-            out = torch.empty((16, 12, x.shape[2]), dtype=torch.int32,
-                              device=dev)
-            return (lambda: lin(x, maps["_FQ12_MC"], out)), out
         a, b = args
-        width = a.shape[2]
         out = torch.empty_like(a)
-        fused = entries.get("h2v_fq12_mul")
-        if fused is not None:
-            return (lambda: fused(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                  width, stream)), out
-        ops = torch.empty((3, 16, 54, width), dtype=torch.int32, device=dev)
-        mont_mul = entries["h2v_mont_mul"]
-
-        def composed():
-            return (lin(a, maps["_FQ12_MA"], ops[0])
-                    or lin(b, maps["_FQ12_MB"], ops[1])
-                    or mont_mul(ops[0].data_ptr(), ops[1].data_ptr(),
-                                ops[2].data_ptr(), 54 * width, 0, stream)
-                    or lin(ops[2], maps["_FQ12_MC"], out))
-        return composed, out
+        fused = entries["h2v_fq12_mul"]
+        stream = torch.cuda.current_stream().cuda_stream
+        return (lambda: fused(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              a.shape[2], stream)), out
 
 
 class FqInv:
@@ -714,10 +674,7 @@ def main(argv=None):
     for (kname, launch_name), case, plain in kind.cases(torch, np, dev):
         want = plain()
         runs = {}
-        names = list(variants)
-        if kname in getattr(kind, "shape_free", ()):
-            names = list(parents) + [kind.name(kind.variants[0])]
-        for name in names:
+        for name in variants:
             entries, rep = built[(name, kname)]
             row = {"kernel": kname, "launch": launch_name, "variant": name,
                    **rep}

@@ -1,8 +1,9 @@
 """PyTorch port, public surface (halo2_verifier_tpu_torch/__init__.py,
 config.py): the export list equals the JAX package's, every name from the
-port's own modules; VerifierConfig has the reference's fields and
-defaults (and the port's forest_dispatch) and builds the port's BatchVerifier on the device it is given;
-a mesh of D devices needs a live process group of D ranks."""
+port's own modules; VerifierConfig has exactly the reference's fields and
+defaults and builds the port's BatchVerifier on the device it is given;
+neither takes a forest_dispatch; a mesh of D devices needs a live process
+group of D ranks."""
 
 import dataclasses
 
@@ -34,10 +35,17 @@ def test_verifier_config_fields_and_defaults_match_reference():
     def fields(cls):
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
-    # plus the port's forest_dispatch, which the reference reads from its
-    # H2V_FOREST_* variables instead
-    assert fields(port.VerifierConfig) == fields(RefConfig) + [
-        ("forest_dispatch", None)]
+    assert fields(port.VerifierConfig) == fields(RefConfig)
+
+
+def test_forest_dispatch_is_not_an_argument():
+    """The forest MSM has one dispatch: neither the verifier nor its
+    configuration takes a forest_dispatch."""
+    with pytest.raises(TypeError, match="forest_dispatch"):
+        port.BatchVerifier(_params(), None, device="cpu",
+                           forest_dispatch="packed")
+    with pytest.raises(TypeError, match="forest_dispatch"):
+        port.VerifierConfig(forest_dispatch="packed")
 
 
 @pytest.mark.parametrize("strategy", ["single", "accumulator"])

@@ -314,9 +314,6 @@ def test_wrappers_refuse_cpu_tensors(cuda):
         kernels.fq_addsub(p16[0], p16[1], kernels.FQ_ADD)
     with pytest.raises(ValueError):
         kernels.fq_inv(p16[0], 0)
-    with pytest.raises(ValueError):
-        kernels.fq_linmap(p16[0].reshape(16, 1, 4), tp._map_tensor(
-            tp._FQ12_MA, cuda))
     x = torch.zeros((16, 12, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.fq12_mul(x, x)
@@ -449,12 +446,13 @@ def test_forest_on_card_equals_plain_and_host_msm(cuda):
     y_np = ints_to_limbs([p[1] for p in pts])
     plan = msm_forest.host_plan(s_np, [200, 400])
     kernels.reset_launches()
-    got = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
+    got = msm_forest.dispatch_planned(x_np, y_np, plan, cuda,
+                                      msm_forest.ForestRecordings())
+    torch.cuda.synchronize()
+    # the frontier and L + 22 point adds, no Montgomery multiply
+    assert _launched() == _chain_counts(msm_forest.packed_layout(plan))
     want = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
     assert torch.equal(got.cpu(), want)
-    # one frontier launch and the point adds; no Montgomery multiply
-    assert kernels.LAUNCHES["forest_frontier0"] == 1
-    assert kernels.LAUNCHES["mont_mul"] == 0
     assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
         hc.g1_msm(sc[:200], pts[:200]), hc.g1_msm(sc[200:], pts[200:])]
 
@@ -464,18 +462,55 @@ def _forest_case(pts, scalars, sizes):
             ints_to_limbs([p[1] for p in pts]), sizes)
 
 
+def _chain_counts(layout):
+    """({kernel: launches}, {kernel: lanes}) of one forest chain on the
+    card, from its layout: the frontier, one point add per level and one
+    for the deepest part (no add lanes), 7 folds and 14 Horner steps, so
+    L + 23 launches; point_add_narrow counts those below narrow_below()."""
+    tw = layout.tw
+    adds = ([w for _oL, _oR, w in layout.levels] + [0]
+            + [tw * msm_forest.WINDOW_BITS << k for k in range(7)]
+            + [tw] * 14)
+    narrow = [b for b in adds if b < kernels.narrow_below()]
+    return ({"forest_frontier0": 1, "point_add": len(adds),
+             "point_add_narrow": len(narrow)},
+            {"forest_frontier0": layout.w0, "point_add": sum(adds),
+             "point_add_narrow": sum(narrow)})
+
+
+def _launched():
+    """The kernels launched since the last reset_launches, with their
+    lanes: ({kernel: launches}, {kernel: lanes}), zeros left out."""
+    return ({k: n for k, n in kernels.LAUNCHES.items() if n},
+            {k: n for k, n in kernels.LANES.items() if kernels.LAUNCHES[k]})
+
+
+def _host_msms(s_np, x_np, y_np, sizes):
+    """The host MSM of each group of a dispatch's entries ((0, 0) is the
+    identity)."""
+    ss, xs, ys = (limbs_to_ints(a) for a in (s_np, x_np, y_np))
+    host, off = [], 0
+    for size in sizes:
+        pairs = [(s, (x, y)) for s, x, y in zip(
+            ss[off:off + size], xs[off:off + size], ys[off:off + size])
+            if x or y]
+        host.append(hc.g1_msm([s for s, _ in pairs], [p for _, p in pairs])
+                    if pairs else None)
+        off += size
+    return host
+
+
 def test_packed_replays_equal_flat_chain(cuda):
-    """Four batches of one pinned signature through one slot of the packed
+    """Four batches of one pinned signature through one slot of the
     dispatch's recordings: the first runs eagerly and is recorded, the
     other three replay. One is narrow (128-bit scalars: half the buckets
     empty, half the lanes identity padding up to the pin), one has zero
     scalars, and two hold identity points. Each batch's window totals are
-    bit-equal to the flat chain's
-    on the same plan, on the card and on the CPU, and to the host MSM;
-    its adds and add lanes, counted through the replays, are the flat
-    chain's, in one launch more (the deepest part's scatter lanes); and
-    the recording's graph holds the package's launches and one copy (the
-    grid's identities), so no PyTorch kernel is left in the chain."""
+    bit-equal to the same chain's on the CPU on the same plan, and fold to
+    the host MSM; its launches and lanes, counted through the replays,
+    are those its layout gives (L + 23 launches); and the recording's
+    graph holds the package's launches and one copy (the grid's
+    identities), so no PyTorch kernel is left in the chain."""
     pts = _points(600)
     holes = [None if i % 7 == 3 else p for i, p in enumerate(pts)]
     rng = np.random.default_rng(4)
@@ -501,20 +536,12 @@ def test_packed_replays_equal_flat_chain(cuda):
         x_np = ints_to_limbs([0 if p is None else p[0] for p in pp])
         y_np = ints_to_limbs([0 if p is None else p[1] for p in pp])
         kernels.reset_launches()
-        flat = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
-        torch.cuda.synchronize()
-        want = (dict(kernels.LAUNCHES), dict(kernels.LANES))
-        want[0]["point_add"] += 1         # the deepest part's scatter lanes:
-        want[0]["point_add_narrow"] += 1  # no add lanes, the narrow shape
-        kernels.reset_launches()
-        got = msm_forest.dispatch_planned_fuse3(
+        got = msm_forest.dispatch_planned(
             x_np, y_np, plan, cuda, recordings=recs, slot="w")
         torch.cuda.synchronize()
-        assert torch.equal(got, flat)
+        assert _launched() == _chain_counts(msm_forest.packed_layout(plan))
         assert torch.equal(got.cpu(), msm_forest.dispatch_planned(
             x_np, y_np, plan, CPU))
-        assert (dict(kernels.LAUNCHES), dict(kernels.LANES)) == want
-        assert want[0]["forest_frontier0"] == 1
         assert combine_window_totals_grouped(got.cpu().numpy(), 2) == [
             hc.g1_msm([s for s, p in zip(sc[a:b], pp[a:b]) if p],
                       [p for p in pp[a:b] if p])
@@ -524,6 +551,8 @@ def test_packed_replays_equal_flat_chain(cuda):
     nodes, launches = recs.counts("w")
     assert launches["forest_frontier0"] == (1, plans[0]["point_idx0"].size)
     assert launches["point_add"][0] == len(plans[0]["levels"]) + 1 + 7 + 14
+    counts = _chain_counts(msm_forest.packed_layout(plans[0]))
+    assert launches == {k: (n, counts[1][k]) for k, n in counts[0].items()}
     assert nodes == {"kernel": sum(n for k, (n, _) in launches.items()
                                    if k not in kernels.PART_COUNTERS),
                      "memcpy": 1, "memset": 0, "other": 0}
@@ -548,50 +577,66 @@ def test_packed_capture_failure_raises(cuda, monkeypatch):
     recs = msm_forest.ForestRecordings()
     monkeypatch.setattr(msm_forest, "packed_chain", syncing)
     with pytest.raises(RuntimeError):
-        msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, cuda,
-                                          recordings=recs)
+        msm_forest.dispatch_planned(x_np, y_np, plan, cuda, recordings=recs)
     assert recs.recorded == 0 and recs.pool_bytes() == 0
     monkeypatch.setattr(msm_forest, "packed_chain", real)
-    flat = msm_forest.dispatch_planned(x_np, y_np, plan, cuda)
+    want = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
     for _ in range(2):
-        got = msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, cuda,
-                                                recordings=recs)
+        got = msm_forest.dispatch_planned(x_np, y_np, plan, cuda,
+                                          recordings=recs)
         torch.cuda.synchronize()
-        assert torch.equal(got, flat)
+        assert torch.equal(got.cpu(), want)
     assert (recs.recorded, recs.replays) == (1, 1)
 
 
-def test_packed_stream_launches_equal_flat(cuda):
-    """The main path's workload streamed on each forest dispatch: the
-    same verdicts, and with the same isolation weights the same lanes per
-    kernel and the same launches, but for one point-add launch more per
-    packed batch (its deepest part's scatter lanes), the packed stream's
-    counted through its replays; one recording serves it, and one more
-    per re-pin."""
+def test_packed_stream_launches_equal_flat(cuda, monkeypatch):
+    """The main path's workload streamed on the card: every batch valid,
+    every dispatch's window totals folding to the host MSM of its
+    entries, and the forest's launches and lanes, counted through the
+    replays, those of one chain per dispatch as its layout gives them;
+    one recording serves the stream, and one more per re-pin."""
     import random
 
     params, vk, items = weights.load_k14_mac_fixture()
     batches = [items[:16], items[16:32], items[:16]]
-    seen = {}
-    for dispatch in ("flat", "packed"):
-        weights_rng = random.Random(7)
-        bv = BatchVerifier(params, vk, forest_dispatch=dispatch,
-                           rng=lambda: 1 + weights_rng.randrange(R - 1))
-        kernels.reset_launches()
-        res = [r.ok for r in bv.verify_stream(batches)]
-        torch.cuda.synchronize()
-        seen[dispatch] = (res, dict(kernels.LAUNCHES), dict(kernels.LANES),
-                          bv.point_adds_dispatched)
-        if dispatch == "packed":
-            recs = bv.forest_recordings
-            assert recs.recorded + recs.replays == len(batches)
-            assert recs.recorded == 1 + bv.plan_repins
-    assert seen["flat"][0] == [True] * 3
-    assert seen["packed"][1]["forest_frontier0"] == 3
-    res, launches, lanes, adds = seen["flat"]
-    launches["point_add"] += len(batches)
-    launches["point_add_narrow"] += len(batches)
-    assert seen["packed"] == (res, launches, lanes, adds)
+    weights_rng = random.Random(7)
+    bv = BatchVerifier(params, vk,
+                       rng=lambda: 1 + weights_rng.randrange(R - 1))
+    layouts, dispatched = [], []
+    real_layout, real_limbs = msm_forest.packed_layout, bv._dispatch_limbs
+
+    def layout(plan):
+        layouts.append(real_layout(plan))
+        return layouts[-1]
+
+    def capture(s_np, x_np, y_np, sizes, timings=None, before_upload=None):
+        handle = real_limbs(s_np, x_np, y_np, sizes, timings, before_upload)
+        dispatched.append((s_np.copy(), x_np.copy(), y_np.copy(),
+                           list(sizes), handle))
+        return handle
+
+    monkeypatch.setattr(msm_forest, "packed_layout", layout)
+    bv._dispatch_limbs = capture
+    kernels.reset_launches()
+    res = [r.ok for r in bv.verify_stream(batches)]
+    torch.cuda.synchronize()
+    assert res == [True] * 3 and len(layouts) == len(batches)
+    want = [{}, {}]
+    for lay in layouts:
+        for have, add in zip(want, _chain_counts(lay)):
+            for k, n in add.items():
+                have[k] = have.get(k, 0) + n
+    got = _launched()
+    forest = ("forest_frontier0", "point_add", "point_add_narrow")
+    assert tuple({k: c[k] for k in forest} for c in got) == tuple(want)
+    recs = bv.forest_recordings
+    assert recs.recorded + recs.replays == len(batches)
+    assert recs.recorded == 1 + bv.plan_repins
+    for s_np, x_np, y_np, sizes, (kind, (buf, event)) in dispatched:
+        assert kind == "grouped"
+        event.synchronize()
+        assert combine_window_totals_grouped(
+            buf.numpy(), len(sizes)) == _host_msms(s_np, x_np, y_np, sizes)
 
 
 def _pinned_cases(pts, seeds, sizes):
@@ -620,29 +665,30 @@ def test_packed_totals_survive_the_next_replay(cuda):
     layouts = {msm_forest.packed_layout(plan) for _x, _y, plan in cases}
     assert len(layouts) == 1
     recs = msm_forest.ForestRecordings()
-    got = [msm_forest.dispatch_planned_fuse3(x, y, plan, cuda,
-                                             recordings=recs, slot="w")
+    got = [msm_forest.dispatch_planned(x, y, plan, cuda, recordings=recs,
+                                       slot="w")
            for x, y, plan in cases]
-    want = [msm_forest.dispatch_planned(x, y, plan, cuda)
+    want = [msm_forest.dispatch_planned(x, y, plan, CPU)
             for x, y, plan in cases]
     torch.cuda.synchronize()
     assert (recs.recorded, recs.replays) == (1, 2)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert torch.equal(g.cpu(), w)
     assert not torch.equal(got[1], got[2])
 
 
 def test_packed_recordings_evict_the_least_recent(cuda):
     """At most max_slots recordings live: a new slot beyond them frees the
     least recently dispatched one (synchronized first), and a freed slot
-    records anew; every result stays bit-equal to the flat chain."""
+    records anew; every result stays bit-equal to the same chain on the
+    CPU."""
     (x, y, plan), = _pinned_cases(_points(300), (31,), [100, 200])
-    flat = msm_forest.dispatch_planned(x, y, plan, cuda)
+    want = msm_forest.dispatch_planned(x, y, plan, CPU)
     recs = msm_forest.ForestRecordings(max_slots=2)
     for slot in ("a", "b", "a", "c", "a", "b"):
-        got = msm_forest.dispatch_planned_fuse3(x, y, plan, cuda,
-                                                recordings=recs, slot=slot)
-        assert torch.equal(got, flat)
+        got = msm_forest.dispatch_planned(x, y, plan, cuda, recordings=recs,
+                                          slot=slot)
+        assert torch.equal(got.cpu(), want)
     # a, b recorded; a replays; c evicts b; a replays; b evicts c
     assert (recs.recorded, recs.evicted, recs.replays) == (4, 2, 2)
     assert list(recs._slots) == ["a", "b"]
@@ -661,7 +707,6 @@ def test_packed_stream_pad_to_localizes_a_tampered_batch(cuda):
     p, inst = bad[5]
     bad[5] = (p, [[(inst[0][0] + 1) % R] + inst[0][1:]])
     bv = BatchVerifier(params, vk)
-    assert bv.forest_dispatch == "packed"
     res = [(r.ok, r.failed_indices) for r in bv.verify_stream(
         [good, good, bad, good, good, good], pad_to=1024)]
     assert res == [(True, [])] * 2 + [(False, [5])] + [(True, [])] * 3
@@ -689,7 +734,7 @@ def test_k14_stream_on_card(cuda):
 
 def test_k9_keccak_gwc_stream_on_card(cuda):
     """Three 256-proof batches of the benchmark's k=9 Keccak256/GWC
-    configuration through verify_stream on the packed forest dispatch,
+    configuration through verify_stream on the forest dispatch,
     the last with one proof tampered: each verdict and failing position
     is the plain reference's (portbench/reference), and the window totals
     of every MSM the stream dispatched, the bisection's included, fold to
@@ -708,7 +753,6 @@ def test_k9_keccak_gwc_stream_on_card(cuda):
     bv = BatchVerifier(weights.params_from_srs(str(cfg.srs)),
                        weights.vk_from_reference(cfg.vk_bytes),
                        multiopen="gwc", hash_name="keccak256")
-    assert bv.forest_dispatch == "packed"
     dispatched = []
     real = bv._dispatch_limbs
 
@@ -730,16 +774,8 @@ def test_k9_keccak_gwc_stream_on_card(cuda):
     for s_np, x_np, y_np, sizes, (kind, (buf, event)) in dispatched:
         assert kind == "grouped"
         event.synchronize()
-        ss, xs, ys = (limbs_to_ints(a) for a in (s_np, x_np, y_np))
-        host, off = [], 0
-        for size in sizes:
-            pairs = [(s, (x, y)) for s, x, y in zip(
-                ss[off:off + size], xs[off:off + size], ys[off:off + size])
-                if x or y]
-            host.append(hc.g1_msm([s for s, _ in pairs],
-                                  [p for _, p in pairs]) if pairs else None)
-            off += size
-        assert combine_window_totals_grouped(buf.numpy(), len(sizes)) == host
+        assert combine_window_totals_grouped(
+            buf.numpy(), len(sizes)) == _host_msms(s_np, x_np, y_np, sizes)
     assert all(kernels.LAUNCHES[k] > 0
                for k in ("forest_frontier0", "sqrt_principal", "point_add"))
     for name in ("replay_vm_hash", "replay_vm_point", "replay_vm_field"):
@@ -775,18 +811,6 @@ def test_fq_addsub_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fq_addsub"] == before + 3
     assert limbs_to_ints(got.cpu().numpy().T) == [(-x) % P for x in a]
-
-
-@pytest.mark.parametrize("name", ["_FQ12_MA", "_FQ12_MB", "_FQ12_MC"])
-def test_fq_linmap_kernel_matches_plain(cuda, name):
-    """T2 on the three Fq12 maps at 1 and 300 lanes, edge values included."""
-    M = getattr(tp, name)
-    k = M.shape[1]
-    vals, _ = _fq_operands(k * 300, 22)
-    X = _limbs_t(vals, cuda).reshape(16, k, 300)
-    for x in (X[:, :, :1].contiguous(), X):
-        got = kernels.fq_linmap(x, tp._map_tensor(M, cuda))
-        assert torch.equal(got, tp.linear_combine_plain(x, M))
 
 
 def _fq12_stacks(width, seed, dev):
@@ -926,8 +950,8 @@ def test_device_pairing_on_card(cuda):
     """The device pairing on the card: Miller lanes equal the oracle's,
     the bilinearity verdicts the oracle's; a check launches K1, T1, the
     fused Fq12 multiply, T3 and the Miller step as many times as the
-    dispatch counts on the CPU (tests/test_torch_fq12_fused.py), and no
-    T2."""
+    dispatch counts on the CPU (tests/test_torch_fq12_fused.py), and
+    nothing else."""
     pairs = [(hc.g1_mul(G1_GEN, 3), hc.g2_mul(G2_GEN, 5)),
              (hc.g1_mul(G1_GEN, 7), hc.g2_mul(G2_GEN, 11))]
     g1 = np.stack([tp.mont_cols([p[0] for p, _ in pairs]),

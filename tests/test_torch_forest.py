@@ -133,7 +133,7 @@ def test_frontier0_plain_equals_reference(case, pts20):
     plan = msm_forest.host_plan(s_np, [8, 12])
     idx0 = plan["point_idx0"]
     assert (idx0 == plan["n_pad"] - 1).any()  # the identity pad is gathered
-    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    xs, ys = msm_forest.pad_transpose_points(x_np, y_np, plan["n_pad"])
     want = jforest._gather0(
         jforest._convert_points(jnp.asarray(xs), jnp.asarray(ys)),
         jnp.asarray(idx0))

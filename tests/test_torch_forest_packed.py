@@ -1,12 +1,15 @@
-"""PyTorch port, the forest MSM's packed dispatch
+"""PyTorch port, the forest MSM's dispatch
 (halo2_verifier_tpu_torch/ops/msm_forest.py: pin_plan_widths,
-packed_layout, pack_operands, packed_chain, dispatch_planned_fuse3)
-against the JAX package's accelerator dispatch, at tests/test_msm_forest.py's
-shapes (pts20; [8, 12] random, [10, 10] edges): pinned plans equal array
-for array over a sequence with a re-pin, the packed buffer and its offsets
-equal the reference's _dispatch_fuse3_packed, and the window totals on the
-CPU are bit-equal to the reference's dispatch_planned_fuse3 (its packed
-default) on the same plans, fresh and pinned."""
+packed_layout, pack_operands, forest_grid, plane_reduce, packed_chain,
+dispatch_planned) against the JAX package's accelerator dispatch, at
+tests/test_msm_forest.py's shapes (pts20; [8, 12] random, [10, 10]
+edges): pinned plans equal array for array over a sequence with a re-pin,
+the packed buffer and its offsets equal the reference's
+_dispatch_fuse3_packed, the window totals on the CPU are bit-equal to the
+reference's dispatch_planned_fuse3 (its packed default) on the same
+plans, fresh and pinned, and a hand-built plan's to its dispatch_planned;
+the bucket grid holds the host's bucket sums, and each step of the
+reduction equals the reference's."""
 
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ import torch
 from halo2_verifier_tpu.ops import hostcurve as jhc
 from halo2_verifier_tpu.ops import msm_forest as jforest
 from halo2_verifier_tpu_torch.ops import curve, kernels, msm_forest
+from halo2_verifier_tpu_torch.ops import hostcurve as hc
 from halo2_verifier_tpu_torch.ops.constants import G1_GEN, R
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 from halo2_verifier_tpu_torch.utils.metrics import StageTimings
@@ -202,34 +206,37 @@ def reference_fuse3(pts20):
 
 @pytest.mark.parametrize("case", ["fresh", "pinned"])
 def test_fuse3_on_cpu_equals_reference(case, reference_fuse3):
-    """The port's dispatch_planned_fuse3 on the CPU (the packed chain on
-    the plain versions) is bit-equal to the reference's, projective
-    coordinates included, and to the port's flat dispatch."""
+    """The port's dispatch_planned on the CPU (the packed chain on the
+    plain versions) is bit-equal to the reference's
+    dispatch_planned_fuse3, projective coordinates included."""
     plan, x_np, y_np, want = reference_fuse3[case]
     timings = StageTimings()
-    got = msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, CPU,
-                                            timings=timings)
+    got = msm_forest.dispatch_planned(x_np, y_np, plan, CPU,
+                                      timings=timings)
     assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
     assert set(timings.totals) == {"dispatch_check", "dispatch_pack",
                                    "dispatch_launch"}
-    if case == "pinned":
-        flat = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
-        assert torch.equal(got, flat)
 
 
-def test_non_canonical_plan_takes_the_flat_route(pts20, monkeypatch):
-    """A hand-built plan whose level count is not a multiple of 3 goes to
-    dispatch_planned, the reference's rule, with the same arguments."""
-    sc, pts, sizes = _batch("random", pts20)
-    s_np, x_np, y_np = _limbs(sc, pts)
-    plan = msm_forest.host_plan_np(s_np, sizes)  # not canonicalized
-    assert len(plan["levels"]) % 3 != 0
-    calls = []
-    monkeypatch.setattr(msm_forest, "dispatch_planned",
-                        lambda *a: calls.append(a) or "flat")
-    assert msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, CPU) == "flat"
-    assert calls and calls[0][2] is plan
+def test_non_canonical_plan_is_canonicalized(pts20):
+    """A hand-built plan (the numpy planner's, not canonicalized) of 8
+    levels whose finished parts skip levels 3-7: dispatch_planned runs the
+    one chain on a canonical copy (the caller's plan is left as it was),
+    and its totals are bit-equal to the reference's dispatch_planned on
+    the plan as built."""
+    sc = [7] * 160 + _random_scalars(20, 3)  # 160 equal keys: 8 levels
+    s_np, x_np, y_np = _limbs(sc, pts20 * 8 + pts20)
+    plan = msm_forest.host_plan_np(s_np, [160, 20])
+    jplan = jforest.host_plan_np(s_np, [160, 20])
+    _assert_plans_equal(plan, jplan)
+    levels = [lvl for lvl, _pos, _keys in plan["finished"]]
+    assert len(plan["levels"]) == 8 and levels == [0, 1, 2, 8]
+    want = np.asarray(jforest.dispatch_planned(x_np, y_np, jplan))
+    got = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    assert len(plan["levels"]) == 8
+    assert [lvl for lvl, _pos, _keys in plan["finished"]] == levels
 
 
 @pytest.mark.parametrize("index", ["level", "scatter_key"])
@@ -245,7 +252,7 @@ def test_fuse3_checks_the_plan_before_packing(index, pts20, monkeypatch):
     monkeypatch.setattr(msm_forest, "pack_operands",
                         lambda *a: pytest.fail("packed an unchecked plan"))
     with pytest.raises(ValueError, match="out of range"):
-        msm_forest.dispatch_planned_fuse3(x_np, y_np, plan, CPU)
+        msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
 
 
 def test_fuse3_on_cuda_needs_the_callers_recordings(pts20):
@@ -254,8 +261,7 @@ def test_fuse3_on_cuda_needs_the_callers_recordings(pts20):
     (no process-wide recording cache)."""
     plan, _jplan, x_np, y_np = _plans("random", pts20)
     with pytest.raises(ValueError, match="recordings="):
-        msm_forest.dispatch_planned_fuse3(x_np, y_np, plan,
-                                          torch.device("cuda"))
+        msm_forest.dispatch_planned(x_np, y_np, plan, torch.device("cuda"))
 
 
 @pytest.mark.parametrize("max_slots", [0, -1])
@@ -297,7 +303,7 @@ def test_recorded_launches_are_counted_per_replay():
 
 def _frontiers(plan, x_np, y_np):
     """Every frontier of a plan's forest on the plain versions."""
-    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
+    xs, ys = msm_forest.pad_transpose_points(x_np, y_np, plan["n_pad"])
     f = [msm_forest.frontier0(torch.from_numpy(xs.view(np.int32)),
                               torch.from_numpy(ys.view(np.int32)),
                               torch.from_numpy(plan["point_idx0"]))]
@@ -307,24 +313,68 @@ def _frontiers(plan, x_np, y_np):
     return f
 
 
+def test_forest_grid_matches_host_bucket_sums(pts20):
+    """forest_grid on a small plan (identities, zero digits, ten equal
+    scalars: several levels): each bucket's slot is the host sum of the
+    points whose digit lands there, and every slot no entry reaches is
+    the identity (0 : R : 0), limb for limb."""
+    sc, pts, sizes = _batch("edges", pts20)
+    s_np, x_np, y_np = _limbs(sc, pts)
+    plan = msm_forest.host_plan(s_np, sizes)
+    assert len(plan["levels"]) >= 3
+    xs, ys = msm_forest.pad_transpose_points(x_np, y_np, plan["n_pad"])
+    t = torch.from_numpy
+    grid = msm_forest.forest_grid(
+        t(xs.view(np.int32)), t(ys.view(np.int32)), t(plan["point_idx0"]),
+        [(t(iL), t(iR)) for iL, iR in plan["levels"]],
+        [(t(pos), t(keys)) for _lvl, pos, keys in plan["finished"]],
+        plan["tw"])
+    nb, nw = msm_forest.NUM_BUCKETS, msm_forest.NUM_WINDOWS
+    assert tuple(grid.shape) == (3, 16, plan["tw"] * nb + 1)
+    want = {}  # slot -> host sum of its points
+    for i, (s, p) in enumerate(zip(sc, pts)):
+        group = 0 if i < sizes[0] else 1
+        for w in range(nw):
+            digit = (s >> (msm_forest.WINDOW_BITS * w)) & (nb - 1)
+            if digit:
+                key = (group * nw + w) * nb + digit
+                want[key] = hc.g1_add(want.get(key), p)
+    keys = sorted(want)
+    got = curve.to_affine_host(tuple(c[:, keys] for c in grid))
+    assert got == [want[k] for k in keys]
+    empty = torch.ones(grid.shape[2] - 1, dtype=torch.bool)
+    empty[keys] = False
+    identity = msm_forest._identity_grid(plan["tw"])[:, :, :1]
+    assert torch.equal(grid[:, :, :-1][:, :, empty],
+                       identity.expand(-1, -1, int(empty.sum())))
+
+
 @pytest.fixture(scope="module")
 def grids(pts20):
     """A random canonical plan's frontiers with (0, 0, 0) entries put
     where its first two finished parts read, and its bucket grid both
-    ways: (frontiers, plan, _bucket_grid's grid from the gathered and
-    concatenated parts, the (3, 16, tw * 256 + 1) grid that the packed
-    chain's scatter lanes write part by part into the identity grid)."""
+    ways: (frontiers, plan, the grid a plain gather and scatter writes:
+    every part gathered, concatenated and scattered into a zero grid,
+    the slots that read Y = Z = 0 patched to Y = R, the (3, 16, tw * 256
+    + 1) grid that the packed chain's scatter lanes write part by part
+    into the identity grid)."""
     plan, _jplan, x_np, y_np = _plans("random", pts20)
     f = _frontiers(plan, x_np, y_np)
     for lvl, pos, _keys in plan["finished"][:2]:
         f[lvl] = tuple(c.clone() for c in f[lvl])
         for c in f[lvl]:
             c[:, torch.from_numpy(pos[:2]).long()] = 0
-    fin = tuple(torch.cat([f[lvl][c].index_select(1, torch.from_numpy(
-        pos).long()) for lvl, pos, _k in plan["finished"]], dim=1)
-        for c in range(3))
-    keys = torch.from_numpy(msm_forest._plan_scatter_idx(plan)).long()
-    old = msm_forest._bucket_grid(fin, keys, plan["tw"])
+    fin = torch.stack([torch.cat([f[lvl][c].index_select(
+        1, torch.from_numpy(pos).long()) for lvl, pos, _k in plan["finished"]],
+        dim=1) for c in range(3)])
+    keys = torch.from_numpy(np.concatenate(
+        [k for _lvl, _pos, k in plan["finished"]])).long()
+    dump = plan["tw"] * msm_forest.NUM_BUCKETS
+    old = torch.zeros((3, 16, dump + 1), dtype=torch.int32)
+    old[:, :, keys] = fin
+    old = old[:, :, :dump]
+    empty = (old[1] == 0).all(0) & (old[2] == 0).all(0)
+    old[1][:, empty] = msm_forest._identity_grid(1)[1, :, :1]
     new = msm_forest._identity_grid(plan["tw"])
     for lvl, pos, k in plan["finished"]:
         msm_forest.scatter_part_plain(f[lvl], torch.from_numpy(pos),
@@ -332,47 +382,59 @@ def grids(pts20):
     return f, plan, old, new
 
 
+def _jax(rows):
+    import jax.numpy as jnp
+
+    return tuple(jnp.asarray(c.numpy().view(np.uint32)) for c in rows)
+
+
+def _from_jax(rows):
+    return tuple(torch.from_numpy(np.asarray(c).astype(np.int32))
+                 for c in rows)
+
+
 @pytest.mark.parametrize("step", ["part_scatter", "leaf_fold", "pair_fold",
                                   "horner"])
 def test_packed_chain_steps_equal_the_flat_sequence(step, grids):
-    """Each plain body of the packed chain's launches against the
-    sequence of the flat chain it replaces, on a random canonical plan:
-    part_scatter, the parts written one by one into the identity grid
-    with the Y := R patch (duplicate dump keys, (0, 0, 0) entries),
-    against the gather, concatenation and _bucket_grid; leaf_fold, the
-    first fold by the leaf index pairs, against the leaf gather and
-    _fold_pairs; pair_fold, a later fold by cached pair indices, against
-    _fold_pairs; horner, the fold by index (the first doubling by
-    index), against the gather and _horner_bits."""
+    """Each plain body of the chain's launches on a random canonical
+    plan: part_scatter, the parts written one by one into the identity
+    grid with the Y := R patch (duplicate dump keys, (0, 0, 0) entries),
+    against a gather of every part and one scatter; leaf_fold, the first
+    fold by the leaf index pairs, against the reference's _fold_pairs on
+    the gathered leaves (their first 8,192, to keep its compile small);
+    pair_fold, a later fold by cached pair indices, against _fold_pairs;
+    horner, _horner (the first doubling by index, every plane by index),
+    against the reference's _horner_bits."""
     f, plan, old, new = grids
     tw = plan["tw"]
     dump = tw * msm_forest.NUM_BUCKETS
     if step == "part_scatter":
-        keys = msm_forest._plan_scatter_idx(plan)
+        keys = np.concatenate([k for _lvl, _pos, k in plan["finished"]])
         assert (keys == dump).sum() > 1
         zeroed = plan["finished"][0][2][:2]
         assert torch.equal(new[:, :, zeroed], msm_forest._identity_grid(
             tw)[:, :, :2])
-        for c in range(3):
-            assert torch.equal(new[c, :, :dump], old[c])
+        assert torch.equal(new[:, :, :dump], old)
         return
     if step == "leaf_fold":
         leaf = torch.from_numpy(msm_forest._bucket_leaf_idx(tw)).long()
-        want = msm_forest._fold_pairs(tuple(c.index_select(1, leaf)
-                                            for c in old))
+        want = jforest._fold_pairs(_jax(c.index_select(1, leaf[:8192])
+                                        for c in old))
         iL, iR = msm_forest._leaf_pairs(tw)
-        got = curve.masked_add(tuple(new), tuple(new), iL=iL, iR=iR)
+        got = tuple(c[:, :4096] for c in curve.masked_add(
+            tuple(new), tuple(new), iL=iL, iR=iR))
     elif step == "pair_fold":
-        rows = tuple(c[:, :4096].contiguous() for c in old)
-        want = msm_forest._fold_pairs(rows)
-        iL, iR = msm_forest._pair_idx(4096)
+        rows = tuple(c[:, 100:100 + 8192].contiguous() for c in old)
+        want = jforest._fold_pairs(_jax(rows))
+        iL, iR = msm_forest._pair_idx(8192)
         got = curve.masked_add(rows, rows, iL=iL, iR=iR)
     else:
         planes = tuple(c[:, 37:37 + tw * msm_forest.WINDOW_BITS].contiguous()
                        for c in old)
-        want = msm_forest._horner_bits(planes, tw)
-        got = msm_forest._horner_indexed(planes, tw)
+        want = torch.from_numpy(np.asarray(jforest._horner_bits(
+            _jax(planes), tw)).astype(np.int32))
+        got = msm_forest._horner(planes, tw)
         assert got.shape == (3, 16, tw)
         assert torch.equal(got, want)
         return
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, _from_jax(want)))

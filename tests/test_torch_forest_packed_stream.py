@@ -1,18 +1,16 @@
 """PyTorch port, the orchestrator's forest dispatch
-(halo2_verifier_tpu_torch/parallel/orchestrator.py, BatchVerifier's
-forest_dispatch): on the CPU a stream of k=8 vector_mul batches gives the
-same verdicts, and the same localized index for a tampered batch, on
-"packed" and on "flat"; plan widths are pinned per workload, the pin's pad
-adds counted; the dispatch's parts are timed; the argument is checked and
-defaults to "flat" off CUDA."""
+(halo2_verifier_tpu_torch/parallel/orchestrator.py through
+msm_forest.dispatch_planned): on the CPU a stream of k=8 vector_mul
+batches gives the expected verdicts and the localized index of a tampered
+batch; plan widths are pinned per workload, the pin's pad adds counted;
+the dispatch's parts are timed."""
 
 import ast
 
 import pytest
 import torch
 
-import halo2_verifier_tpu_torch as port
-from halo2_verifier_tpu_torch.ops.constants import G1_GEN, G2_GEN, R
+from halo2_verifier_tpu_torch.ops.constants import R
 from halo2_verifier_tpu_torch.parallel.orchestrator import BatchVerifier
 from halo2_verifier_tpu_torch.prover.fixtures import vm_k8_batch
 
@@ -40,15 +38,12 @@ def _tampered(item):
     return proof, [[(inst[0][0] + 1) % R] + inst[0][1:]]
 
 
-@pytest.mark.parametrize("dispatch", ["flat", "packed"])
-def test_stream_verdicts_per_dispatch(dispatch, vm_k8):
+def test_stream_verdicts(vm_k8):
     """Two good batches, then one with its second proof's public input
-    changed: ok, ok, and a failure localized at that index, on either
-    dispatch (so both give the same verdicts)."""
+    changed: ok, ok, and a failure localized at that index."""
     params, vk, items = vm_k8
     batches = [items[:2], items[1:], [items[0], _tampered(items[1])]]
-    bv = BatchVerifier(params, vk, device="cpu", forest_dispatch=dispatch)
-    assert bv.forest_dispatch == dispatch
+    bv = BatchVerifier(params, vk, device="cpu")
     got = [(r.ok, r.failed_indices) for r in bv.verify_stream(batches)]
     assert got == [(True, []), (True, []), (False, [TAMPERED])]
     # the bisection pins its own workload: both sides at the stream's pad
@@ -57,8 +52,6 @@ def test_stream_verdicts_per_dispatch(dispatch, vm_k8):
     assert bv.forest_recordings.recorded == 0  # no recording off CUDA
     parts = {"dispatch_plan", "dispatch_check", "dispatch_pack",
              "dispatch_launch", "dispatch_prefetch"}
-    if dispatch == "flat":
-        parts.add("dispatch_h2d")
     counts = bv.timings.counts
     assert parts <= set(counts)
     # the stream's three dispatches; the bisection's are not split
@@ -84,15 +77,15 @@ def test_pins_pad_the_plan_and_count_its_adds(vm_k8, monkeypatch):
         return plan, new
 
     slots = []
-    real_fuse3 = msm_forest.dispatch_planned_fuse3
+    real_dispatch = msm_forest.dispatch_planned
 
-    def fuse3(*args, **kw):
+    def dispatch(*args, **kw):
         slots.append(kw["slot"])
-        return real_fuse3(*args, **kw)
+        return real_dispatch(*args, **kw)
 
     monkeypatch.setattr(msm_forest, "pin_plan_widths", pin)
-    monkeypatch.setattr(msm_forest, "dispatch_planned_fuse3", fuse3)
-    bv = BatchVerifier(params, vk, device="cpu", forest_dispatch="packed")
+    monkeypatch.setattr(msm_forest, "dispatch_planned", dispatch)
+    bv = BatchVerifier(params, vk, device="cpu")
     key = repr((256, 256))
 
     def run():
@@ -117,17 +110,3 @@ def test_pins_pad_the_plan_and_count_its_adds(vm_k8, monkeypatch):
     bv._plan_pins[key] = narrow
     run()
     assert bv.plan_repins == 1 and bv._plan_pins[key] == first
-
-
-def test_forest_dispatch_argument_and_config():
-    params = port.ParamsKZG(8, 256, G1_GEN, G2_GEN, G2_GEN)
-    assert BatchVerifier(params, None, device="cpu").forest_dispatch == "flat"
-    assert BatchVerifier(params, None, device="cpu",
-                         forest_dispatch="packed").forest_dispatch == "packed"
-    with pytest.raises(ValueError, match="forest_dispatch"):
-        BatchVerifier(params, None, device="cpu", forest_dispatch="fused")
-    for value, want in ((None, "flat"), ("packed", "packed"),
-                        ("flat", "flat")):
-        bv = port.VerifierConfig(forest_dispatch=value).make_verifier(
-            params, None, device="cpu")
-        assert bv.forest_dispatch == want

@@ -392,7 +392,7 @@ def test_dispatch_counts_per_check(monkeypatch):
     for the lane product, 389 + 760 in the hard part), 102 Miller steps
     (64 doublings, 38 additions), 13 K1, 501 T1 and 1 T3 (the final
     exponentiation and the twist; the steps' own arithmetic runs on the
-    plain bodies, which no dispatch point counts) and no T2."""
+    plain bodies, which no dispatch point counts)."""
     counts = collections.Counter()
 
     def counted(mod, name, kernel):
@@ -404,7 +404,6 @@ def test_dispatch_counts_per_check(monkeypatch):
         monkeypatch.setattr(mod, name, wrapper)
 
     counted(tp, "fq12_mul_stack", "fq12_mul")
-    counted(tp, "_linear_combine", "fq_linmap")
     counted(tp, "_finv", "fq_inv")
     counted(tp, "_miller_step", "miller_step")
     for name in ("_fadd", "_fsub", "_fneg"):

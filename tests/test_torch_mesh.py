@@ -8,7 +8,9 @@ bit-equal to the JAX mesh's for that device on make_mesh(8); the combined
 points equal the JAX combine and the exact host MSM. In-process: the
 orchestrator's dispatch fall-through by mesh size (windows -> forest ->
 scan, the scan's identity padding), a world of one bit-equal to the
-single-device forest, and the checks that refuse an indivisible mesh."""
+single-device forest, both forest kinds on the single-device chain's
+forest_grid and plane_reduce, and the checks that refuse an indivisible
+mesh."""
 
 import jax
 import numpy as np
@@ -262,6 +264,36 @@ def test_world_of_one_equals_single_device():
     for got in (pmesh.sharded_forest_by_windows(mesh, x, y, s, [20]),
                 pmesh.sharded_forest_window_totals(mesh, x, y, s, [20])):
         assert got.shape == (1, 3, 16, 32)
+        np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+def test_mesh_forest_kinds_use_the_shared_chain(monkeypatch):
+    """Both forest kinds build their bucket grid with
+    msm_forest.forest_grid and reduce it with msm_forest.plane_reduce,
+    the single-device chain's two halves, once each; in a world of one
+    (no ranks) their totals are dispatch_planned's."""
+    s, x, y, _p, _s = _case()
+    s, x, y = s[:12], x[:12], y[:12]
+    want = msm_forest.dispatch_planned(
+        x, y, msm_forest.host_plan(s, [12]), CPU).numpy()
+    calls = []
+
+    def spy(name):
+        real = getattr(msm_forest, name)
+
+        def fn(*args, **kw):
+            calls.append(name)
+            return real(*args, **kw)
+        return fn
+
+    for name in ("forest_grid", "plane_reduce"):
+        monkeypatch.setattr(msm_forest, name, spy(name))
+    mesh = pmesh.make_mesh(1, device="cpu")
+    for kind in (pmesh.sharded_forest_by_windows,
+                 pmesh.sharded_forest_window_totals):
+        calls.clear()
+        got = kind(mesh, x, y, s, [12])
+        assert calls == ["forest_grid", "plane_reduce"], kind.__name__
         np.testing.assert_array_equal(got[0].numpy(), want)
 
 

@@ -2,8 +2,7 @@
 (halo2_verifier_tpu_torch/ops/msm_scan.py): msm_host (device sort, padded
 to a power of two) on the cases of tests/test_curve_msm_jax.py, the
 grouped presorted path on zero scalars, identities, duplicate points and
-an all-zero group, and the forest's bucket phase through the suffix scans
-(halo2_verifier_tpu_torch/ops/msm_forest.py, scan=True)."""
+an all-zero group."""
 
 import random
 
@@ -12,9 +11,8 @@ import pytest
 import torch
 
 from halo2_verifier_tpu.ops import hostcurve as jhc
-from halo2_verifier_tpu_torch.ops import curve
 from halo2_verifier_tpu_torch.ops import hostcurve as hc
-from halo2_verifier_tpu_torch.ops import msm_forest, msm_scan
+from halo2_verifier_tpu_torch.ops import msm_scan
 from halo2_verifier_tpu_torch.ops.constants import G1_GEN, R
 from halo2_verifier_tpu_torch.ops.limbs import ints_to_limbs
 from halo2_verifier_tpu_torch.ops.msm import combine_window_totals_grouped
@@ -83,37 +81,3 @@ def test_grouped_edge_cases_match_host_msm(pts20):
         want.append(hc.g1_msm(sc[off:off + sz], pts[off:off + sz]))
         off += sz
     assert combine_window_totals_grouped(arr.numpy(), len(sizes)) == want
-
-
-def test_forest_bucket_phase_scan_equals_tree(pts20):
-    """_bucket_phase(scan=True) names the same window totals as the
-    bit-plane tree, as affine points (other projective limbs)."""
-    sc = _random_scalars(20, 8)
-    s_np, x_np, y_np = _limbs(sc, pts20)
-    plan = msm_forest.host_plan(s_np, [20])
-    tree = msm_forest.dispatch_planned(x_np, y_np, plan, CPU)
-    # the bucket grid's input: the finalized entries, gathered as
-    # dispatch_planned gathers them
-    xs, ys = msm_forest._pad_transpose_points(x_np, y_np, plan["n_pad"])
-    up = msm_forest._upload
-    src = msm_forest._convert_points(up(xs.view(np.int32), CPU),
-                                     up(ys.view(np.int32), CPU))
-    frontiers = [msm_forest._gather(src, up(plan["point_idx0"], CPU,
-                                            torch.int64))]
-    for iL, iR in plan["levels"]:
-        f = frontiers[-1]
-        frontiers.append(curve.masked_add(f, f, iL=up(iL, CPU),
-                                          iR=up(iR, CPU)))
-    gathered = [msm_forest._gather(frontiers[lvl], up(pos, CPU, torch.int64))
-                for lvl, pos, _k in plan["finished"]]
-    fin = tuple(torch.cat([g[c] for g in gathered], dim=1)
-                for c in range(3))
-    scatter = up(msm_forest._plan_scatter_idx(plan), CPU, torch.int64)
-    by_tree = msm_forest._bucket_phase(fin, scatter, plan["tw"])
-    by_scan = msm_forest._bucket_phase(fin, scatter, plan["tw"], scan=True)
-    assert torch.equal(by_tree, tree)
-    assert tuple(by_scan.shape) == (3, 16, 32)
-    assert curve.to_affine_host(tuple(by_scan)) == curve.to_affine_host(
-        tuple(by_tree))
-    assert combine_window_totals_grouped(by_scan.numpy(), 1) == [
-        hc.g1_msm(sc, pts20)]

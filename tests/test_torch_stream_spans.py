@@ -101,7 +101,7 @@ def test_stream_records_each_span_once_per_batch(vm_k8, groups):
     pre-pass's spans and the finish wait on the caller's thread; neither
     device_msm nor device_msm_collect."""
     params, vk, items = vm_k8
-    bv = _verifier(params, vk, forest_dispatch="flat")
+    bv = _verifier(params, vk)
     if groups == 2:
         _split_groups(bv)
     batches = [items[:2], items[1:]]
@@ -138,7 +138,7 @@ def test_packed_dispatch_launches_the_next_pre_pass_before_its_upload(
     first batch's launch precedes every dispatch, and the verdicts
     stand."""
     params, vk, items = vm_k8
-    bv = _verifier(params, vk, forest_dispatch="packed")
+    bv = _verifier(params, vk)
     batches = [items[:2], items[1:], items[:2]]
     got = [r.ok for r in bv.verify_stream(batches, pad_to=256)]
     assert got == [True] * 3
